@@ -33,6 +33,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
              data-sheet HBM rate. The work is integer arithmetic, for which
              the data sheet gives no non-tensor peak, so no operation term
              is counted.
+6. radix   - the radix tool's path (python -m rufus_tpu_torch.tools.radixbench
+             at its default n, 25,993,216 random k 25 keys, with the partition
+             count set to 0 first), which prints its own JSON line; then the
+             tool's timings on the subject's first pending buffer (the
+             fold's real input, 106,954,752 keys with sentinels: its global
+             torch.sort time is the fold's sort). The partition kernel is
+             held to partition_torch exactly at both shapes, its output to
+             the sorted input, and timed beside the plain version. No single
+             PyTorch call gives block-sorted runs in bucket order, so it
+             has no library yardstick.
 
 Then the kernels line, the nvidia-smi name/power-limit line, and last the
 {"ok": true, "device": ...} line.
@@ -51,6 +61,7 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 K, BATCH, READ_PAD, PENDING = 25, 65536, 160, 96 << 20
+RADIX_N = 26_000_000  # the radix tool's default n (cut to 25,993,216)
 
 
 def emit(obj):
@@ -178,6 +189,24 @@ def phase_slice(data, workdir):
     return info, os.path.join(workdir, hl)
 
 
+def pending_buffers(data):
+    """The subject's pending buffers as the count stage fills them, unsorted:
+    the raw window keys of consecutive batches, at least PENDING each."""
+    from rufus_tpu_torch.io import fastq
+    from rufus_tpu_torch.ops import cuda_count
+
+    parts, n = [], 0
+    for mate in data["child"]:
+        for bb in fastq.fastq_batches(mate, BATCH, READ_PAD):
+            reads = torch.from_numpy(bb.seq).to("cuda")
+            parts.append(cuda_count.encode_canon(reads, K).reshape(-1))
+            n += parts[-1].numel()
+            if n >= PENDING:
+                buf = torch.cat(parts)
+                parts, n = [], 0
+                yield buf
+
+
 def phase_kernels(data, hl_path, launches):
     from rufus_tpu_torch.convert import hashlist_keys_to_int64
     from rufus_tpu_torch.io import fastq, hashlist as hio
@@ -208,19 +237,8 @@ def phase_kernels(data, hl_path, launches):
     # compact_runs, raw: one real pending buffer (the subject's first fold
     # input); counted: what the second fold merges (merge_sorted's input),
     # the first buffer's table with the next buffer's unique keys
-    batches = (torch.from_numpy(bb.seq).to(dev) for mate in data["child"]
-               for bb in fastq.fastq_batches(mate, BATCH, READ_PAD))
-
-    def pending_buffer():
-        parts, n = [], 0
-        for bb in batches:
-            parts.append(cuda_count.encode_canon(bb, K).reshape(-1))
-            n += parts[-1].numel()
-            if n >= PENDING:
-                break
-        return torch.sort(torch.cat(parts)).values
-
-    s = pending_buffer()
+    buffers = pending_buffers(data)
+    s = torch.sort(next(buffers)).values
     gk, gs = cuda_fold.compact_runs(s)
     wk, ws = cuda_fold.compact_runs_torch(s)
     err = max(max_abs_err(gk, wk), max_abs_err(gs, ws))
@@ -237,7 +255,8 @@ def phase_kernels(data, hl_path, launches):
             lambda: torch.unique_consecutive(s, return_counts=True), 3),
         "shape": [s.numel()], "n_unique": gk.numel(), "bytes": nbytes}
     del s, wk, ws
-    s2 = pending_buffer()
+    s2 = torch.sort(next(buffers)).values
+    del buffers
     k2, c2 = cuda_fold.compact_runs(s2)
     del s2
     mk, order = torch.sort(torch.cat([gk, k2]), stable=True)
@@ -290,6 +309,57 @@ def phase_kernels(data, hl_path, launches):
     return rows
 
 
+def phase_radix(data, work, seed):
+    from rufus_tpu_torch.ops import cuda_partition as cp
+    from rufus_tpu_torch.tools import radixbench
+
+    cp.partition.launches = 0
+    tool = radixbench.main(["--n", str(RADIX_N), "--k", str(K), "--seed",
+                            str(seed), "--out",
+                            os.path.join(work, "radixbench.json")])
+    launches = cp.partition.launches
+
+    def check(keys):
+        n = keys.numel()
+        got, got_off = cp.partition(keys, K)
+        want, want_off = cp.partition_torch(keys, K)
+        err = max(max_abs_err(got, want), max_abs_err(got_off, want_off))
+        if int(got_off[-1]) != n or not torch.equal(
+                torch.sort(got).values, torch.sort(keys).values):
+            raise AssertionError("partition's output is not its input "
+                                 "reordered")
+        del got, want
+        meta = cp.run_metadata(keys, K)
+        nbytes = 16 * n + 8 * meta[1].numel() + 8 * (cp.BUCKETS + 1)
+        return {"max_abs_err": err,
+                "ms": time_ms(lambda: cp.partition(keys, K), 10),
+                "kernel_ms": time_ms(lambda: cp.partition(keys, K, meta), 10),
+                "plain_ms": time_ms(lambda: cp.partition_torch(keys, K), 3),
+                "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+                "library_ms": None, "shape": [n],
+                "bucket_sizes": torch.diff(got_off).tolist(), "bytes": nbytes}
+
+    keys = radixbench.random_keys(tool["n_keys"], K, seed, "cuda")
+    row = {"name": "partition", "route": "cuda",
+           "source": "rufus_tpu_torch/csrc/partition.cu",
+           "replaces": "tools/radixbench.py:159", "launches": launches,
+           **check(keys)}
+    del keys
+    raw = next(pending_buffers(data))
+    fold = check(raw)
+    emit({"phase": "radix", "on": "fold_buffer", **radixbench.measure(raw, K)})
+    del raw
+    row["fold_buffer"] = fold
+    row["max_abs_err"] = max(row["max_abs_err"], fold["max_abs_err"])
+    emit({"phase": "kernel", **row})
+    if launches <= 0:
+        raise AssertionError("the radix tool's path never launched partition")
+    if row["max_abs_err"] != 0:
+        raise AssertionError(f"partition disagrees with its plain version "
+                             f"(max_abs_err {row['max_abs_err']})")
+    return row
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -309,6 +379,7 @@ def main():
                           args.seed)
         sl, hl_path = phase_slice(data, os.path.join(work, "run"))
         rows = phase_kernels(data, hl_path, sl["launches"])
+        rows.append(phase_radix(data, work, args.seed))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

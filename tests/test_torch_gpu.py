@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from rufus_tpu_torch import synthetic
-from rufus_tpu_torch.ops import codec, cuda_count, cuda_filter, cuda_fold
+from rufus_tpu_torch.ops import (codec, cuda_count, cuda_filter, cuda_fold,
+                                 cuda_partition)
 from rufus_tpu_torch.pipeline import RufusConfig, RufusPipeline
 
 pytestmark = pytest.mark.gpu
@@ -90,6 +91,29 @@ def test_window_hits_kernel(T, L):
     assert torch.equal(got, cuda_filter.window_hits_torch(r, q, l, t, k, 15))
     if T >= 100:
         assert int(got.sum()) > 0
+
+
+@pytest.mark.parametrize("n,k,one_bucket", [
+    (0, 25, False), (1, 25, False), (8191, 25, False), (8192, 25, False),
+    (3 * 8192 + 5, 25, False), (3_000_000, 25, False),
+    (3_000_000, 25, True), (3 * 8192 + 5, 31, False)])
+def test_partition_kernel(n, k, one_bucket):
+    dev = _card()
+    g = torch.Generator(device="cpu").manual_seed(n + k)
+    if one_bucket:  # every key in bucket 5
+        keys = torch.randint(5 << (2 * k - 4), 6 << (2 * k - 4), (n,),
+                             generator=g)
+    else:  # duplicates and sentinels
+        pool = torch.randint(0, 1 << (2 * k), (max(1, n // 3),), generator=g)
+        keys = pool[torch.randint(0, pool.numel(), (n,), generator=g)]
+        keys[torch.rand(n, generator=g) < 0.1] = codec.SENTINEL
+    keys = keys.to(dev)
+    got, got_off = cuda_partition.partition(keys, k)
+    want, want_off = cuda_partition.partition_torch(keys, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got_off, want_off)
+    assert int(got_off[-1]) == n
 
 
 def test_slice_on_card_equals_slice_on_cpu(tmp_path):
