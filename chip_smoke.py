@@ -32,7 +32,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
              once, outputs written once) over 3.35 TB/s, the H100 SXM
              data-sheet HBM rate. The work is integer arithmetic, for which
              the data sheet gives no non-tensor peak, so no operation term
-             is counted.
+             is counted. Every row carries share_of_bound = bound_ms / ms;
+             a share above 1.05 fails the run (a kernel faster than the
+             memory allows has skipped work). compact_runs reads the unique
+             count on the host in the middle of a call, so its ms includes
+             the host's gaps: device_us gives, beside it, each of its
+             kernels' device time from torch.profiler (library_device_us
+             the same for torch.unique_consecutive). The fold's two sorts
+             are timed too: torch.sort of the pending buffer and the stable
+             sort of a merge. A slice_busy line then reckons the card's busy
+             time in the count and filter stages, launches x ms of the
+             kernels and sorts, beside each stage's wall time.
 6. radix   - the radix tool's path (python -m rufus_tpu_torch.tools.radixbench
              at its default n, 25,993,216 random k 25 keys, with the partition
              count set to 0 first), which prints its own JSON line; then the
@@ -82,8 +92,36 @@ def time_ms(fn, iters: int) -> float:
     return a.elapsed_time(b) / iters
 
 
+def device_us(fn, iters: int = 5) -> dict:
+    """Mean device microseconds per call of fn, by kernel name, as
+    torch.profiler saw them: the card's own work, without the host's gaps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.device_time_total / iters
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
 def bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def share_of_bound(row: dict) -> dict:
+    """Adds share_of_bound = bound_ms / ms to a kernel row and to its nested
+    rows; fails if the kernel beat its bound."""
+    for r in [row] + [v for v in row.values()
+                      if isinstance(v, dict) and "bound_ms" in v]:
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        if r["share_of_bound"] > 1.05:
+            raise AssertionError(
+                f"{row['name']} ran at {r['share_of_bound']:.2f} of its byte "
+                "bound: faster than the memory allows, it skipped work")
+    return row
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -166,8 +204,7 @@ def phase_slice(data, workdir):
     hl = [n for n in os.listdir(workdir) if n.endswith(".HashList")][0]
     info = {"phase": "slice", "wall_s": wall,
             "stage_wall_s": {n: s["wall_s"] for n, s in stages.items()},
-            "unique_kmers": {stub: t.keys.numel()
-                             for stub, t in pipe._dev_tables.items()},
+            "unique_kmers": stages["count"]["unique_kmers"],
             "n_mutant": stages["hashlist"]["n_mutant"], "kept_pairs": kept,
             "sites_spanned": int(len(spanned)),
             "sites": int(len(data["sites"])),
@@ -175,7 +212,8 @@ def phase_slice(data, workdir):
                                   for n, s in stages.items()},
             "max_memory_allocated": max(s.get("device_peak_bytes", 0)
                                         for s in stages.values()),
-            "launches": launches}
+            "launches": launches,
+            "folds": stages["count"]["folds"]}
     emit(info)
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
@@ -238,7 +276,10 @@ def phase_kernels(data, hl_path, launches):
     # input); counted: what the second fold merges (merge_sorted's input),
     # the first buffer's table with the next buffer's unique keys
     buffers = pending_buffers(data)
-    s = torch.sort(next(buffers)).values
+    raw = next(buffers)
+    pending_sort_ms = time_ms(lambda: torch.sort(raw), 3)
+    s = torch.sort(raw).values
+    del raw
     gk, gs = cuda_fold.compact_runs(s)
     wk, ws = cuda_fold.compact_runs_torch(s)
     err = max(max_abs_err(gk, wk), max_abs_err(gs, ws))
@@ -253,15 +294,21 @@ def phase_kernels(data, hl_path, launches):
         "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
         "library_ms": time_ms(
             lambda: torch.unique_consecutive(s, return_counts=True), 3),
-        "shape": [s.numel()], "n_unique": gk.numel(), "bytes": nbytes}
+        "shape": [s.numel()], "n_unique": gk.numel(), "bytes": nbytes,
+        "pending_sort_ms": pending_sort_ms,
+        "device_us": device_us(lambda: cuda_fold.compact_runs(s)),
+        "library_device_us": device_us(
+            lambda: torch.unique_consecutive(s, return_counts=True))}
     del s, wk, ws
     s2 = torch.sort(next(buffers)).values
     del buffers
     k2, c2 = cuda_fold.compact_runs(s2)
     del s2
-    mk, order = torch.sort(torch.cat([gk, k2]), stable=True)
+    both = torch.cat([gk, k2])
+    merge_sort_ms = time_ms(lambda: torch.sort(both, stable=True), 3)
+    mk, order = torch.sort(both, stable=True)
     mc = torch.cat([gs, c2])[order]
-    del gk, gs, k2, c2, order
+    del gk, gs, k2, c2, order, both
     gk, gs = cuda_fold.compact_runs(mk, mc)
     wk, ws = cuda_fold.compact_runs_torch(mk, mc)
     cerr = max(max_abs_err(gk, wk), max_abs_err(gs, ws))
@@ -272,7 +319,8 @@ def phase_kernels(data, hl_path, launches):
         "plain_ms": time_ms(lambda: cuda_fold.compact_runs_torch(mk, mc), 3),
         "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
         "library_ms": None, "shape": [mk.numel()], "n_unique": gk.numel(),
-        "bytes": nbytes}
+        "bytes": nbytes, "merge_sort_ms": merge_sort_ms,
+        "device_us": device_us(lambda: cuda_fold.compact_runs(mk, mc))}
     row["max_abs_err"] = max(err, cerr)
     rows.append(row)
     del mk, mc, gk, gs, wk, ws
@@ -302,11 +350,33 @@ def phase_kernels(data, hl_path, launches):
         "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
         "library_ms": None, "shape": [B, L], "table": T, "bytes": nbytes})
     for row in rows:
-        emit({"phase": "kernel", **row})
+        emit({"phase": "kernel", **share_of_bound(row)})
         if row["max_abs_err"] != 0:
             raise AssertionError(f"{row['name']} disagrees with its plain "
                                  f"version (max_abs_err {row['max_abs_err']})")
     return rows
+
+
+def phase_slice_busy(sl, rows):
+    """The card's busy time in the count and filter stages, reckoned as
+    launches x ms of the kernels and of the fold's sorts as phase_kernels
+    timed them (every fold sorts one pending buffer and compacts it raw;
+    every later fold also merge-sorts and compacts with counts), beside
+    each stage's wall time."""
+    by = {r["name"]: r for r in rows}
+    enc, comp, win = by["encode_canon"], by["compact_runs"], by["window_hits"]
+    folds = sl["folds"]
+    merges = comp["launches"] - folds
+    count_ms = (enc["launches"] * enc["ms"]
+                + folds * (comp["pending_sort_ms"] + comp["ms"])
+                + merges * (comp["counted"]["merge_sort_ms"]
+                            + comp["counted"]["ms"]))
+    filter_ms = win["launches"] * win["ms"]
+    emit({"phase": "slice_busy", "folds": folds, "merges": merges,
+          "count": {"busy_ms": count_ms,
+                    "wall_s": sl["stage_wall_s"]["count"]},
+          "filter": {"busy_ms": filter_ms,
+                     "wall_s": sl["stage_wall_s"]["filter"]}})
 
 
 def phase_radix(data, work, seed):
@@ -351,7 +421,7 @@ def phase_radix(data, work, seed):
     del raw
     row["fold_buffer"] = fold
     row["max_abs_err"] = max(row["max_abs_err"], fold["max_abs_err"])
-    emit({"phase": "kernel", **row})
+    emit({"phase": "kernel", **share_of_bound(row)})
     if launches <= 0:
         raise AssertionError("the radix tool's path never launched partition")
     if row["max_abs_err"] != 0:
@@ -379,11 +449,13 @@ def main():
                           args.seed)
         sl, hl_path = phase_slice(data, os.path.join(work, "run"))
         rows = phase_kernels(data, hl_path, sl["launches"])
+        phase_slice_busy(sl, rows)
         rows.append(phase_radix(data, work, args.seed))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "share_of_bound")
     emit({"kernels": [{k: row[k] for k in keys} for row in rows]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

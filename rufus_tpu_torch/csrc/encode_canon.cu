@@ -4,52 +4,154 @@
 // (which wrote (hi, lo) u32 planes because the TPU has no 64-bit lanes).
 // Here a key is one int64, INT64_MAX for a window with any non-ACGT base.
 //
-// Bound: bytes (read B*L, write 8*B*W). A block stages `rows` reads as
-// 2-bit codes in shared memory with coalesced loads; each thread then
-// rolls the forward and reverse-complement keys over a run of S windows
-// of one read, so a window costs a few integer operations instead of k.
+// Bound: bytes (read B*L, write 8*B*W; the output is 87% of them), with the
+// integer work close behind. The design, for this card:
+//
+//   pack   A block takes `rows` reads. A thread loads 16 bases (one 16-byte
+//          load where L and the pointer allow, bytes otherwise) and turns
+//          them, four at a time in a 32-bit register, into 32 bits of 2-bit
+//          codes, 32 bits of complement codes in reverse order, and 16
+//          bad-base bits. Shared memory then holds, per read, the codes
+//          packed first-base-highest in 64-bit words, a second packed copy
+//          of the reverse complement, and the bad-base mask.
+//   window Thread t computes output elements 2t and 2t+1 of the block's
+//          contiguous span. A window's forward key is the 2k-bit field at
+//          base w of the first copy, its reverse-complement key the field
+//          at base R-k-w of the second (R = the padded row length): two
+//          words, two shifts and an or each, no prologue and no loop over
+//          k. The window is the sentinel if any of the mask's k bits at w
+//          is set.
+//   store  One 16-byte store a thread on neighbouring addresses; an odd
+//          first or last element of the span goes out alone.
+//
+// The other candidate, keeping the rolling recurrence (rt_roll) with a
+// staged output tile, does k-1 steps of prologue per thread or serialises
+// a whole read in one thread; the field extraction needs neither.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSpan = 8;  // windows rolled by one thread
+constexpr unsigned kLow2 = 0x03030303u, kLow1 = 0x01010101u;
 
-__global__ void encode_canon_kernel(const uint8_t* __restrict__ reads,
-                                    long long B, int L, int k, int rows,
-                                    long long* __restrict__ out) {
-  extern __shared__ int8_t codes[];  // rows * L
+// 64-bit words of packed codes per read: the bases, plus one word so that
+// a field may always read the word after its first.
+__host__ __device__ inline int row_words(int L) { return (L + 31) / 32 + 1; }
+
+// The byte v of each of the 4 lanes of x gathered into one byte, 2 bits a
+// lane, the lowest lane in the lowest bits.
+__device__ __forceinline__ unsigned gather2(unsigned x) {
+  return (x | (x >> 6) | (x >> 12) | (x >> 18)) & 0xFFu;
+}
+
+// Four ASCII bases (the first in the lowest byte) -> 8 bits of codes with
+// the first base highest, 8 bits of complement codes with the last base
+// highest, 4 bad-base bits with the first base lowest. The same arithmetic
+// as rt_base_code, four lanes at a time.
+__device__ __forceinline__ void pack4(unsigned ascii, unsigned& fwd,
+                                      unsigned& rc, unsigned& bad) {
+  const unsigned u = ascii & 0xDFDFDFDFu;
+  const unsigned ok = __vcmpeq4(u, 0x41414141u) | __vcmpeq4(u, 0x43434343u) |
+                      __vcmpeq4(u, 0x47474747u) | __vcmpeq4(u, 0x54545454u);
+  unsigned c = (u >> 1) & kLow2;
+  c ^= (c >> 1) & kLow1;
+  fwd = gather2(__byte_perm(c, 0u, 0x0123u));
+  rc = gather2(c ^ kLow2);
+  const unsigned b = ~ok & kLow1;
+  bad = (b | (b >> 7) | (b >> 14) | (b >> 21)) & 0xFu;
+}
+
+// The top 64 bits of (hi:lo) << s, 0 <= s <= 62.
+__device__ __forceinline__ unsigned long long field(unsigned long long hi,
+                                                    unsigned long long lo,
+                                                    int s) {
+  return (hi << s) | ((lo >> 1) >> (63 - s));
+}
+
+__global__ void __launch_bounds__(kThreads)
+encode_canon_kernel(const uint8_t* __restrict__ reads, long long B, int L,
+                    int k, int rows, int vec, long long* __restrict__ out) {
+  extern __shared__ unsigned long long smem[];
+  const int F = row_words(L);
+  unsigned long long* s_fwd = smem;             // rows * F
+  unsigned long long* s_rc = smem + rows * F;   // rows * F
+  unsigned* s_bad = (unsigned*)(smem + 2 * rows * F);  // rows * F
   const int W = L - k + 1;
   const long long row0 = (long long)blockIdx.x * rows;
   const int nrows = (int)min((long long)rows, B - row0);
   const uint8_t* src = reads + row0 * L;
-  for (int i = threadIdx.x; i < nrows * L; i += blockDim.x)
-    codes[i] = (int8_t)rt_base_code(src[i]);
-  __syncthreads();
 
-  const unsigned long long mask = (1ull << (2 * k)) - 1ull;
-  const int shift = 2 * (k - 1);
-  const int per_row = (W + kSpan - 1) / kSpan;
-  long long* dst = out + row0 * W;
-  for (int t = threadIdx.x; t < nrows * per_row; t += blockDim.x) {
-    const int r = t / per_row;
-    const int w0 = (t - r * per_row) * kSpan;
-    const int w1 = min(w0 + kSpan, W);
-    const int8_t* c = codes + r * L;
-    unsigned long long fwd = 0, rc = 0;
-    int run = 0;  // consecutive ACGT bases ending at p
-    for (int p = w0; p < w1 + k - 1; ++p) {
-      const int b = c[p];
-      rt_roll(fwd, rc, (unsigned long long)(b & 3), mask, shift);
-      run = b >= 0 ? run + 1 : 0;
-      if (p >= w0 + k - 1) {
-        const unsigned long long canon = fwd < rc ? fwd : rc;
-        dst[(long long)r * W + (p - k + 1)] =
-            run >= k ? (long long)canon : RT_SENTINEL;
+  // pack: one item is 16 bases, chunk c of read r; chunks past the read
+  // fill the spare word. A 64-bit word holds chunk 2q in its high half, so
+  // chunk c lands in 32-bit slot c ^ 1.
+  const int chunks = 2 * F, real = chunks - 2;
+  for (int t = threadIdx.x; t < nrows * chunks; t += kThreads) {
+    const int r = t / chunks, c = t - r * chunks;
+    unsigned a[4];
+    if (vec && 16 * c + 16 <= L) {
+      const uint4 v = *(const uint4*)(src + (long long)r * L + 16 * c);
+      a[0] = v.x, a[1] = v.y, a[2] = v.z, a[3] = v.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int p = 16 * c + 4 * i + j;
+          const unsigned ch = p < L ? src[(long long)r * L + p] : (unsigned)'N';
+          a[i] |= ch << (8 * j);
+        }
       }
     }
+    unsigned fwd = 0, rc = 0, bad = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      unsigned f4, r4, b4;
+      pack4(a[i], f4, r4, b4);
+      fwd |= f4 << (24 - 8 * i);
+      rc |= r4 << (8 * i);
+      bad |= b4 << (4 * i);
+    }
+    // base p sits at base R-1-p of the reverse copy, R = 16 * real
+    const int cr = c < real ? real - 1 - c : c;
+    ((unsigned*)(s_fwd + r * F))[c ^ 1] = fwd;
+    ((unsigned*)(s_rc + r * F))[cr ^ 1] = rc;
+    ((unsigned short*)(s_bad + r * F))[c] = (unsigned short)bad;
   }
+  __syncthreads();
+
+  const int R = 16 * real;
+  const int down = 64 - 2 * k;
+  const unsigned kmask = (1u << k) - 1u;
+  auto window = [&](int r, int w) -> long long {
+    const unsigned long long* f = s_fwd + r * F + (w >> 5);
+    const int v = R - k - w;
+    const unsigned long long* g = s_rc + r * F + (v >> 5);
+    const unsigned* b = s_bad + r * F + (w >> 5);
+    const unsigned long long fk = field(f[0], f[1], 2 * (w & 31)) >> down;
+    const unsigned long long rk = field(g[0], g[1], 2 * (v & 31)) >> down;
+    const unsigned any = __funnelshift_r(b[0], b[1], w & 31) & kmask;
+    return any ? RT_SENTINEL : (long long)(fk < rk ? fk : rk);
+  };
+
+  // the block's output is one contiguous span; pairs start at an even
+  // element of the whole output so that each is one aligned 16-byte store
+  long long* dst = out + row0 * W;
+  const int total = nrows * W;
+  const int odd = (int)((row0 * W) & 1);
+  const int pairs = (total - odd) / 2;
+  for (int p = threadIdx.x; p < pairs; p += kThreads) {
+    const int e = odd + 2 * p;
+    const int r = e / W, w = e - r * W;
+    longlong2 v;
+    v.x = window(r, w);
+    v.y = w + 1 < W ? window(r, w + 1) : window(r + 1, 0);
+    *(longlong2*)(dst + e) = v;
+  }
+  if (threadIdx.x == 0 && odd) dst[0] = window(0, 0);
+  if (threadIdx.x == 32 && ((total - odd) & 1))
+    dst[total - 1] = window(nrows - 1, W - 1);
 }
 
 }  // namespace
@@ -59,8 +161,11 @@ extern "C" int rt_encode_canon(const uint8_t* reads, long long B, int L,
                                void* stream) {
   if (B > 0) {
     const long long blocks = (B + rows - 1) / rows;
-    encode_canon_kernel<<<(unsigned)blocks, kThreads, (size_t)rows * L,
-                          (cudaStream_t)stream>>>(reads, B, L, k, rows, out);
+    const int vec = L % 16 == 0 && ((uintptr_t)reads & 15u) == 0;
+    const size_t smem = (size_t)rows * row_words(L) * 20;
+    encode_canon_kernel<<<(unsigned)blocks, kThreads, smem,
+                          (cudaStream_t)stream>>>(reads, B, L, k, rows, vec,
+                                                  out);
   }
   return (int)cudaGetLastError();
 }

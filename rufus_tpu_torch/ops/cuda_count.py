@@ -7,9 +7,11 @@ INT64_MAX sentinel on windows that hold any non-ACGT base, which is what
 ``torch.sort`` takes next on the count path.
 
 On the H100 the work is bound by bytes: it reads B*L bytes and writes
-8*B*W. The CUDA kernel (``csrc/encode_canon.cu``) stages reads as 2-bit
-codes in shared memory with coalesced loads and rolls both strands over
-runs of windows, so each window costs a few integer operations.
+8*B*W. The CUDA kernel (``csrc/encode_canon.cu``) packs a block's reads
+into 2-bit codes in shared memory (forward and reverse-complement copies
+and a bad-base mask), cuts each window's two keys out of them as bit
+fields, so a window costs a fixed few operations whatever k is, and
+writes the block's contiguous output span with 16-byte stores.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 
 from . import _build, codec
 
-_STAGE_BYTES = 16384  # shared-memory bytes of staged reads per block
+_STAGE_BASES = 16384  # bases a block packs into shared memory, at most
 
 
 def encode_canon_torch(reads: torch.Tensor, k: int) -> torch.Tensor:
@@ -31,7 +33,7 @@ def encode_canon_torch(reads: torch.Tensor, k: int) -> torch.Tensor:
 
 def _encode_canon_cuda(reads: torch.Tensor, k: int) -> torch.Tensor:
     B, L = reads.shape
-    rows = max(1, min(64, _STAGE_BYTES // L))
+    rows = max(1, min(64, _STAGE_BASES // L))
     out = torch.empty((B, L - k + 1), dtype=torch.int64, device=reads.device)
     fn = _build.function("encode_canon", "rt_encode_canon",
                          [_build.P, _build.I64, _build.I32, _build.I32,

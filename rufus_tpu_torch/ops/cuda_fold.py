@@ -11,19 +11,28 @@ exactly.
 On the H100 the work is bound by bytes: it reads the keys (and counts) and
 writes 16 bytes per unique key. The TPU kernel's in-VMEM bitonic network,
 carry row and DMA tricks existed because the TPU has no fast scatter and
-runs its grid in order; the CUDA kernel (``csrc/compact.cu``) is a
-scan-then-scatter over tiles instead. The sort in front of it stays
-``torch.sort``, as the JAX package left it to ``lax.sort``.
+runs its grid in order. The CUDA kernels (``csrc/compact.cu``) work in
+tiles of 4096 keys that need nothing of each other. Raw keys go through one
+pass into a stage of n slots, each tile's unique keys and run sums in the
+tile's own place, and after the host's read of the unique count m a gather
+moves them to their slots. Keys with counts go through a count pass over
+the keys, which gives every tile its first output slot and m, and one main
+pass that reads keys and counts once and writes straight to the slots.
+Either way the host reads m once, so the tensors returned own exactly m
+elements. The sort in front stays ``torch.sort``, as the JAX
+package left it to ``lax.sort``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from . import _build, codec
 
-_TILE = 2048  # elements per block in csrc/compact.cu
-_KIND = {None: 0, torch.int32: 1, torch.int64: 2}
+_TILE = 4096  # elements per tile in csrc/compact.cu
+_KIND = {torch.int32: 1, torch.int64: 2}  # raw keys are kind 0 in the source
 
 
 def compact_runs_torch(keys: torch.Tensor, counts: torch.Tensor | None = None):
@@ -41,33 +50,57 @@ def compact_runs_torch(keys: torch.Tensor, counts: torch.Tensor | None = None):
     return keys[idx], nxt - start
 
 
+def _scratch_words(n: int) -> int:
+    """int64 words the kernels share for n keys: the unique count, then
+    per tile its first output slot and its lead, per 32 tiles their first
+    slot, and per tile, as int32 padded to 16 bytes, its heads. The raw
+    route's stage comes on top: 12 bytes a key, rounded up to whole tiles."""
+    nt = -(-n // _TILE)
+    words = 2 + 2 * nt + -(-nt // 32)
+    return words + (words & 1) + 2 * -(-nt // 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry_points():
+    """The four C entry points (looked up once: the lookups cost as much
+    as a gap between the kernels)."""
+    P, I64, I32 = _build.P, _build.I64, _build.I32
+    count = _build.function("compact", "rt_compact_count", [P, I64, P, P])
+    run = _build.function("compact", "rt_compact_runs",
+                          [P, P, I32, I64, P, P, P, P])
+    stage = _build.function("compact", "rt_compact_stage",
+                            [P, I64, P, P, P, P])
+    gather = _build.function("compact", "rt_compact_gather",
+                             [P, I64, P, P, P, P, P, P])
+    return count, run, stage, gather
+
+
 def _compact_runs_cuda(keys: torch.Tensor, counts: torch.Tensor | None):
     dev = keys.device
     n = keys.numel()
-    kind = _KIND[None if counts is None else counts.dtype]
-    cptr = _build.P(None) if counts is None else _build.ptr(counts)
-    nb = max(1, -(-n // _TILE))
-    block_heads = torch.empty(nb, dtype=torch.int64, device=dev)
-    block_sums = torch.empty(nb, dtype=torch.int64, device=dev)
-    totals = torch.empty(2, dtype=torch.int64, device=dev)
-    P, I64, I32 = _build.P, _build.I64, _build.I32
+    ptr, check = _build.ptr, _build.check
+    scratch = torch.empty(_scratch_words(n), dtype=torch.int64, device=dev)
+    count, run, stage, gather = _entry_points()
     stream = _build.stream_ptr(dev)
-    stats = _build.function("compact", "rt_compact_stats",
-                            [P, P, I32, I64, P, P, P, P])
-    _build.check(stats(_build.ptr(keys), cptr, kind, n, _build.ptr(block_heads),
-                       _build.ptr(block_sums), _build.ptr(totals), stream),
-                 "compact_runs (stats)")
-    m = int(totals[0].item())  # sizes the output exactly
+    if counts is None:
+        slots = -(-n // _TILE) * _TILE
+        stage_keys = torch.empty(slots, dtype=torch.int64, device=dev)
+        stage_sums = torch.empty(slots, dtype=torch.int32, device=dev)
+        check(stage(ptr(keys), n, ptr(scratch), ptr(stage_keys),
+                    ptr(stage_sums), stream), "compact_runs (stage)")
+    else:
+        check(count(ptr(keys), n, ptr(scratch), stream),
+              "compact_runs (count)")
+    m = int(scratch[0].item())  # sizes the output exactly
     out_keys = torch.empty(m, dtype=torch.int64, device=dev)
     out_sums = torch.empty(m, dtype=torch.int64, device=dev)
-    pref = torch.empty(m, dtype=torch.int64, device=dev)
-    scatter = _build.function("compact", "rt_compact_scatter",
-                              [P, P, I32, I64, P, P, P, I64, P, P, P, P])
-    _build.check(scatter(_build.ptr(keys), cptr, kind, n,
-                         _build.ptr(block_heads), _build.ptr(block_sums),
-                         _build.ptr(totals), m, _build.ptr(out_keys),
-                         _build.ptr(pref), _build.ptr(out_sums), stream),
-                 "compact_runs (scatter)")
+    if counts is None:
+        check(gather(ptr(keys), n, ptr(scratch), ptr(stage_keys),
+                     ptr(stage_sums), ptr(out_keys), ptr(out_sums), stream),
+              "compact_runs (gather)")
+    else:
+        check(run(ptr(keys), ptr(counts), _KIND[counts.dtype], n, ptr(scratch),
+                  ptr(out_keys), ptr(out_sums), stream), "compact_runs")
     compact_runs.launches += 1
     return out_keys, out_sums
 

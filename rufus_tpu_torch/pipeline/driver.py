@@ -181,7 +181,7 @@ class RufusPipeline:
         jobs = [(cfg.subject, cfg.subject_stub, cfg.subject_low_k)] + [
             (c, cfg.control_stub(c), cfg.par_low_k) for c in cfg.controls]
         with self.trace.stage("count", samples=len(jobs),
-                              device=str(self.device)):
+                              device=str(self.device)) as rec:
             streams = {}
             for path, stub, _ in jobs:
                 if not os.path.exists(cfg.wpath(stub + ".table.npz")):
@@ -190,6 +190,11 @@ class RufusPipeline:
             done = [self.count_sample(path, stub, low,
                                       stream=streams.get(stub))
                     for path, stub, low in jobs]
+            rec["unique_kmers"] = {stub: len(t) for (_, stub, _), t
+                                   in zip(jobs, done)}
+            rec["folds"] = sum(self._dev_tables[stub].folds
+                               for _, stub, _ in jobs
+                               if stub in self._dev_tables)
         return {"subject": done[0], "controls": done[1:]}
 
     # -- stage 2: model -----------------------------------------------------

@@ -43,31 +43,97 @@ def _reads(rng, B, L, k):
     return reads, quals, lens, g
 
 
-@pytest.mark.parametrize("B,L,k", [(4096, 160, 25), (1000, 160, 31),
-                                   (777, 1024, 11), (3, 30, 25)])
-def test_encode_canon_kernel(B, L, k):
+@pytest.mark.parametrize("B,L,k,fill", [
+    (4096, 160, 25, "mixed"), (1000, 160, 31, "mixed"),
+    (777, 1024, 11, "mixed"), (3, 30, 25, "mixed"),
+    (1001, 151, 24, "mixed"),   # L not a multiple of 16, odd B
+    (1000, 151, 1, "mixed"),    # the smallest k
+    (513, 160, 31, "no_n"), (513, 160, 25, "all_n"), (4096, 160, 25, "no_n"),
+    (65, 331, 21, "mixed"),     # an odd number of rows a block, odd W
+])
+def test_encode_canon_kernel(B, L, k, fill):
     dev = _card()
-    reads, *_ = _reads(np.random.default_rng(B), B, L, k)
+    rng = np.random.default_rng(B)
+    reads, _, _, g = _reads(rng, B, L, k)
+    if fill == "all_n":
+        reads = np.full((B, L), ord("N"), np.uint8)
+    elif fill == "no_n":
+        starts = rng.integers(0, len(g) - L, B)
+        reads = g[starts[:, None] + np.arange(L)[None, :]]
     r = torch.from_numpy(reads).to(dev)
     got = cuda_count.encode_canon(r, k)
     torch.cuda.synchronize()
-    assert torch.equal(got, cuda_count.encode_canon_torch(r, k))
+    want = cuda_count.encode_canon_torch(r, k)
+    assert torch.equal(got, want)
+    if fill != "mixed":
+        assert bool((want == codec.SENTINEL).all()) == (fill == "all_n")
+    # a batch that starts at an odd byte: no 16-byte loads
+    odd = torch.from_numpy(np.concatenate([[0], reads.reshape(-1)])
+                           .astype(np.uint8)).to(dev)[1:].view(B, L)
+    assert torch.equal(cuda_count.encode_canon(odd, k), want)
 
 
-@pytest.mark.parametrize("n", [0, 1, 2047, 2048, 100_003, 3_000_000])
-def test_compact_runs_kernel(n):
-    dev = _card()
-    g = torch.Generator(device="cpu").manual_seed(n)
+_TILE = cuda_fold._TILE
+
+
+def _random_sorted(n, g):
     keys = torch.randint(0, max(1, n // 3), (n,), generator=g)
     keys[torch.rand(n, generator=g) < 0.1] = codec.SENTINEL
-    s = torch.sort(keys).values.to(dev)
+    return torch.sort(keys).values
+
+
+def _compact_case(case, g):
+    """Sorted keys (sentinels last) of one named edge of the tiled scan."""
+    if isinstance(case, int):
+        return _random_sorted(case, g)
+    n = 5 * _TILE + 17
+    if case == "all_equal":     # one run across every tile
+        return torch.full((n,), 12345, dtype=torch.int64)
+    if case == "long_run":      # its tail is gathered over more than 32 tiles
+        return torch.cat([torch.full((40 * _TILE + 3,), 7, dtype=torch.int64),
+                          torch.arange(8, 108, dtype=torch.int64)])
+    if case == "all_distinct":
+        return torch.arange(n, dtype=torch.int64) * 3
+    if case == "all_sentinel":
+        return torch.full((n,), codec.SENTINEL, dtype=torch.int64)
+    if case == "sentinel_at_tile_edge":   # first sentinel opens a tile
+        return torch.cat([_random_sorted(2 * _TILE, g).clamp(max=1 << 40),
+                          torch.full((_TILE + 5,), codec.SENTINEL)])
+    if case == "run_ends_at_tile_edge":
+        return torch.repeat_interleave(torch.arange(8, dtype=torch.int64),
+                                       _TILE // 2)
+    if case == "odd_slice":     # starts at an odd element: not 16-byte aligned
+        return _random_sorted(3 * _TILE + 2, g)
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize("case", [
+    0, 1, 2, 2047, 2048, 2049, 4095, 4096, 4097, 100_003, 3_000_000,
+    30_000_000, "all_equal", "long_run",
+    "all_distinct", "all_sentinel", "sentinel_at_tile_edge",
+    "run_ends_at_tile_edge", "odd_slice"])
+def test_compact_runs_kernel(case):
+    dev = _card()
+    g = torch.Generator(device="cpu").manual_seed(
+        case if isinstance(case, int) else len(case))
+    s = _compact_case(case, g).to(dev)
+    n = s.numel()
     c32 = torch.randint(1, 50, (n,), generator=g, dtype=torch.int32).to(dev)
-    for c in (None, c32, c32.to(torch.int64)):
-        got = cuda_fold.compact_runs(s, c)
+    # int64 counts whose sum passes 2^31 within one run and in all
+    big = c32.to(torch.int64) * (1 << 27)
+    if case == "odd_slice":
+        s, c32, big = s[1:], c32[1:], big[1:]
+        assert s.data_ptr() % 16 == 8
+    for c in (None, c32, big):
         want = cuda_fold.compact_runs_torch(s, c)
-        torch.cuda.synchronize()
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)
+        for _ in range(2):  # the second call reuses the first's scratch
+            got = cuda_fold.compact_runs(s, c)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+                assert a.untyped_storage().nbytes() == 8 * a.numel()
+        if c is big and want[1].numel() and n > 100:
+            assert int(want[1].sum()) > 1 << 31
 
 
 @pytest.mark.parametrize("T", [0, 1, 100, 5000, 40000])

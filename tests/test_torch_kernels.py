@@ -55,17 +55,35 @@ def _hilo_to_i64(hi, lo):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("k", [11, 25, 31])
-def test_encode_canon_matches_pallas_and_xla(k):
+@pytest.mark.parametrize("k,B,L,fill", [
+    pytest.param(11, 256, 64, "mixed", id="11"),
+    pytest.param(25, 256, 64, "mixed", id="25"),
+    pytest.param(31, 256, 64, "mixed", id="31"),
+    (25, 256, 151, "mixed"),   # L not a multiple of 16, odd W
+    (24, 1001, 151, "mixed"),  # odd B
+    (25, 3, 30, "mixed"),      # fewer reads than a block's rows
+    (1, 256, 40, "mixed"),     # the smallest k
+    (31, 256, 48, "no_n"),
+    (25, 256, 64, "all_n"),
+])
+def test_encode_canon_matches_pallas_and_xla(k, B, L, fill):
     rng = np.random.default_rng(k)
-    reads, _, _ = _probe_reads(rng, 256, 64, k)
+    reads, _, g = _probe_reads(rng, B, L, k)
+    if fill == "all_n":
+        reads = np.full((B, L), ord("N"), np.uint8)
+    elif fill == "no_n":
+        starts = rng.integers(0, len(g) - L, B)
+        reads = g[starts[:, None] + np.arange(L)[None, :]]
     got = cuda_count.encode_canon_torch(torch.from_numpy(reads), k).numpy()
-    hi, lo = pallas_count.encode_canon_hilo(jnp.asarray(reads), k,
-                                            interpret=True)
-    np.testing.assert_array_equal(got, _hilo_to_i64(hi, lo))
+    if B % pallas_count.BLK == 0:  # the Pallas kernel takes whole blocks only
+        hi, lo = pallas_count.encode_canon_hilo(jnp.asarray(reads), k,
+                                                interpret=True)
+        np.testing.assert_array_equal(got, _hilo_to_i64(hi, lo))
     hi, lo = pallas_count.encode_canon_hilo_xla(jnp.asarray(reads), k)
     np.testing.assert_array_equal(got, _hilo_to_i64(hi, lo))
-    assert (got != codec.SENTINEL).any() and (got == codec.SENTINEL).any()
+    if B >= pallas_count.BLK:  # enough reads to hold both kinds of window
+        assert (got != codec.SENTINEL).any() == (fill != "all_n")
+        assert (got == codec.SENTINEL).any() == (fill != "no_n")
 
 
 def test_encode_canon_rejects_k32_and_short_rows():
@@ -130,17 +148,55 @@ def _jax_rle_compact(keys, counts, cap, pallas):
     return _hilo_to_i64(np.asarray(oh)[:slots], np.asarray(ol)[:slots]), sums
 
 
+_TILE = cuda_fold._TILE
+
+
+def _edge_runs(rng, edge, counted):
+    """Sorted keys (+ counts) on one named edge of the CUDA kernel's tiles."""
+    S = codec.SENTINEL
+    if edge == "all_equal":              # one run across every tile
+        keys = np.full(2 * _TILE, 12345, np.int64)
+    elif edge == "sentinel_at_tile_edge":  # the first sentinel opens a tile
+        keys = np.concatenate([np.sort(rng.integers(0, 1 << 40, _TILE)),
+                               np.full(_TILE, S)])
+    elif edge == "run_ends_at_tile_edge":
+        keys = np.repeat(np.arange(4, dtype=np.int64), _TILE // 2)
+    elif edge == "tile_minus_1":
+        keys = np.sort(rng.integers(0, 300, _TILE - 1))
+    elif edge == "tile_plus_1":
+        keys = np.sort(rng.integers(0, 300, _TILE + 1))
+    elif edge == "odd_slice":            # a view that starts at element 1
+        keys = np.sort(rng.integers(0, 500, 2 * _TILE + 1))[1:]
+    else:
+        raise KeyError(edge)
+    keys = keys.astype(np.int64)
+    counts = rng.integers(1, 100, len(keys)).astype(np.int32) if counted \
+        else None
+    return keys, counts
+
+
 @pytest.mark.parametrize("counted", [False, True])
 @pytest.mark.parametrize("n,n_unique,cap", [
-    (8192, 1000, 4096),       # runs cross the 2048-element tiles
+    (8192, 1000, 4096),       # runs cross the kernel's tiles
     (4096, 4096, 4096),       # all unique, exact fit
     (8192, 0, 4096),          # all sentinel
     (8192, 129, 4096),        # long runs, few heads
     (8192, 4000, 4096),       # short runs
+    ("all_equal", 1, 4096),
+    ("sentinel_at_tile_edge", None, 4096),
+    ("run_ends_at_tile_edge", 4, 4096),
+    ("tile_minus_1", None, 4096),
+    ("tile_plus_1", None, 4096),
+    ("odd_slice", None, 4096),
 ])
 def test_compact_runs_matches_pallas_fold(n, n_unique, cap, counted):
-    rng = np.random.default_rng(n + n_unique)
-    keys, counts = _sorted_runs(rng, n, n_unique, counted)
+    if isinstance(n, str):
+        keys, counts = _edge_runs(np.random.default_rng(len(n)), n, counted)
+        if n_unique is None:
+            n_unique = len(np.unique(keys[keys != codec.SENTINEL]))
+    else:
+        rng = np.random.default_rng(n + n_unique)
+        keys, counts = _sorted_runs(rng, n, n_unique, counted)
     got_k, got_s = cuda_fold.compact_runs_torch(
         torch.from_numpy(keys),
         None if counts is None else torch.from_numpy(counts))
@@ -149,6 +205,25 @@ def test_compact_runs_matches_pallas_fold(n, n_unique, cap, counted):
         want_k, want_s = _jax_rle_compact(keys, counts, cap, pallas)
         np.testing.assert_array_equal(got_k.numpy(), want_k)
         np.testing.assert_array_equal(got_s.numpy(), want_s)
+
+
+def test_compact_runs_int64_sums_pass_2_31():
+    """Run sums above 2^31. The JAX package sums counts in int32 (it clamps
+    a run at 2^31 - 1), so it cannot take this case: the plain version is
+    held to numpy instead."""
+    rng = np.random.default_rng(31)
+    keys = np.sort(rng.integers(0, 40, 3 * _TILE)).astype(np.int64)
+    keys[-100:] = codec.SENTINEL
+    counts = rng.integers(1 << 27, 1 << 28, len(keys)).astype(np.int64)
+    got_k, got_s = cuda_fold.compact_runs_torch(torch.from_numpy(keys),
+                                                torch.from_numpy(counts))
+    valid = keys != codec.SENTINEL
+    want_k, inv = np.unique(keys[valid], return_inverse=True)
+    want_s = np.zeros(len(want_k), np.int64)
+    np.add.at(want_s, inv, counts[valid])
+    np.testing.assert_array_equal(got_k.numpy(), want_k)
+    np.testing.assert_array_equal(got_s.numpy(), want_s)
+    assert int(got_s.max()) > 1 << 31
 
 
 # ---------------------------------------------------------------------------
