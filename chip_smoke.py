@@ -25,7 +25,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
              65536-read batch; compact_runs in both of its main-path modes,
              raw on one real 96 Mi-key pending buffer and counted on the
              merge of that buffer's table with the next buffer's unique
-             keys; window_hits on the run's HashList. Times each (CUDA
+             keys; window_hits on a mate-1 batch against the run's
+             HashList and against a HashList of 65,536 keys (the run's,
+             4,096 canonical windows of the batch, random 50-bit keys from
+             --seed: most windows miss, and the keys no longer fit shared
+             memory), with its prebuilt hashlist_index (index_ms times the
+             build, once per HashList). Times each (CUDA
              events, warmed up), the plain version and, for raw
              compact_runs, torch.unique_consecutive as the library
              yardstick. bound_ms is the bytes each must move (inputs read
@@ -34,18 +39,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
              the data sheet gives no non-tensor peak, so no operation term
              is counted. Every row carries share_of_bound = bound_ms / ms;
              a share above 1.05 fails the run (a kernel faster than the
-             memory allows has skipped work). compact_runs reads the unique
-             count on the host in the middle of a call, so its ms includes
-             the host's gaps: device_us gives, beside it, each of its
-             kernels' device time from torch.profiler (library_device_us
-             the same for torch.unique_consecutive). The fold's two sorts
+             memory allows has skipped work). device_us gives, beside ms,
+             each of a call's kernels' device time from torch.profiler, for
+             compact_runs, window_hits and partition: compact_runs reads
+             the unique count on the host in the middle of a call, so its
+             ms includes the host's gaps (library_device_us is the same for
+             torch.unique_consecutive). The fold's two sorts
              are timed too: torch.sort of the pending buffer and the stable
              sort of a merge. A slice_busy line then reckons the card's busy
              time in the count and filter stages, launches x ms of the
              kernels and sorts, beside each stage's wall time.
 6. radix   - the radix tool's path (python -m rufus_tpu_torch.tools.radixbench
-             at its default n, 25,993,216 random k 25 keys, with the partition
-             count set to 0 first), which prints its own JSON line; then the
+             at its default n, 25,993,216 random k 25 keys, with the
+             partition and run-metadata counts set to 0 first), which prints
+             its own JSON line; then the
              tool's timings on the subject's first pending buffer (the
              fold's real input, 106,954,752 keys with sentinels: its global
              torch.sort time is the fold's sort). The partition kernel is
@@ -72,6 +79,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 K, BATCH, READ_PAD, PENDING = 25, 65536, 160, 96 << 20
 RADIX_N = 26_000_000  # the radix tool's default n (cut to 25,993,216)
+LARGE_T, LARGE_HITS = 65536, 4096  # window_hits' second HashList
 
 
 def emit(obj):
@@ -245,10 +253,58 @@ def pending_buffers(data):
                 yield buf
 
 
-def phase_kernels(data, hl_path, launches):
+def large_hashlist(table, reads, seed):
+    """A HashList of LARGE_T keys, sorted and unique, from `seed`: the run's
+    keys, LARGE_HITS distinct canonical keys of windows of `reads`, and
+    random 50-bit keys for the rest (so most windows miss, as they do
+    against a real HashList)."""
+    from rufus_tpu_torch.ops import codec, cuda_count
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    wins = torch.unique(cuda_count.encode_canon(reads, K)).cpu()
+    wins = wins[wins != codec.SENTINEL]
+    picked = wins[torch.randperm(wins.numel(), generator=g)[:LARGE_HITS]]
+    base = torch.unique(torch.cat([table.cpu(), picked]))
+    pool = torch.unique(torch.randint(0, 1 << 50, (2 * LARGE_T,), generator=g))
+    pool = pool[~torch.isin(pool, base)]
+    pool = pool[torch.randperm(pool.numel(), generator=g)]
+    out = torch.sort(torch.cat([base, pool[:LARGE_T - base.numel()]])).values
+    assert out.numel() == LARGE_T and bool((out[1:] > out[:-1]).all())
+    return out.to(reads.device)
+
+
+def window_hits_row(r, q, l, table):
+    """window_hits on one batch and table: error against the plain version,
+    times, bound and each kernel's device time."""
+    from rufus_tpu_torch.ops import cuda_filter
+
+    B, L = r.shape
+    T = table.numel()
+    # the filter stage builds the index once per HashList
+    index = cuda_filter.hashlist_index(table, K)
+    call = lambda: cuda_filter.window_hits(  # noqa: E731
+        r, q, l, table, K, 15, index)
+    got = call()
+    want = cuda_filter.window_hits_torch(r, q, l, table, K, 15)
+    nbytes = 2 * B * L + 4 * B + 8 * T + 4 * B
+    return {
+        "name": "window_hits", "route": "cuda",
+        "source": "rufus_tpu_torch/csrc/window_hits.cu",
+        "replaces": "rufus_tpu/ops/pallas_filter.py:144",
+        "max_abs_err": max_abs_err(got, want), "ms": time_ms(call, 50),
+        "plain_ms": time_ms(
+            lambda: cuda_filter.window_hits_torch(r, q, l, table, K, 15), 5),
+        "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+        "library_ms": None, "shape": [B, L], "table": T, "bytes": nbytes,
+        "hits": int(got.sum()), "device_us": device_us(call),
+        "index_bits": index.bits, "index_ms": time_ms(
+            lambda: cuda_filter.hashlist_index(table, K), 10)}
+
+
+def phase_kernels(data, hl_path, launches, seed):
     from rufus_tpu_torch.convert import hashlist_keys_to_int64
     from rufus_tpu_torch.io import fastq, hashlist as hio
-    from rufus_tpu_torch.ops import cuda_count, cuda_filter, cuda_fold
+    from rufus_tpu_torch.ops import cuda_count, cuda_fold
 
     dev = torch.device("cuda")
     rows = []
@@ -325,30 +381,20 @@ def phase_kernels(data, hl_path, launches):
     rows.append(row)
     del mk, mc, gk, gs, wk, ws
 
-    # window_hits: the run's HashList against a subject mate-1 batch
+    # window_hits: the run's HashList against a subject mate-1 batch, then
+    # the same batch against a HashList of LARGE_T keys
     table = hashlist_keys_to_int64(hio.hashlist_keys(hl_path, K), dev)
-    T = table.numel()
     fb = next(fastq.fastq_batches(data["child"][0], BATCH, READ_PAD,
                                   text=True, max_width=1024))
     r, q, l = (torch.from_numpy(a).to(dev) for a in (fb.seq, fb.qual, fb.lens))
-    B, L = r.shape
-    got = cuda_filter.window_hits(r, q, l, table, K, 15)
-    want = cuda_filter.window_hits_torch(r, q, l, table, K, 15)
-    err = max_abs_err(got, want)
-    if int(got.sum()) <= 0:
+    row = window_hits_row(r, q, l, table)
+    row["launches"] = launches["window_hits"]
+    if row["hits"] <= 0:
         raise AssertionError("window_hits found no mutant window in a batch")
-    nbytes = 2 * B * L + 4 * B + 8 * T + 4 * B
-    rows.append({
-        "name": "window_hits", "route": "cuda",
-        "source": "rufus_tpu_torch/csrc/window_hits.cu",
-        "replaces": "rufus_tpu/ops/pallas_filter.py:144",
-        "launches": launches["window_hits"], "max_abs_err": err,
-        "ms": time_ms(lambda: cuda_filter.window_hits(r, q, l, table, K, 15),
-                      50),
-        "plain_ms": time_ms(
-            lambda: cuda_filter.window_hits_torch(r, q, l, table, K, 15), 5),
-        "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
-        "library_ms": None, "shape": [B, L], "table": T, "bytes": nbytes})
+    big = window_hits_row(r, q, l, large_hashlist(table, r, seed))
+    row["large_table"] = big
+    row["max_abs_err"] = max(row["max_abs_err"], big["max_abs_err"])
+    rows.append(row)
     for row in rows:
         emit({"phase": "kernel", **share_of_bound(row)})
         if row["max_abs_err"] != 0:
@@ -383,11 +429,12 @@ def phase_radix(data, work, seed):
     from rufus_tpu_torch.ops import cuda_partition as cp
     from rufus_tpu_torch.tools import radixbench
 
-    cp.partition.launches = 0
+    cp.partition.launches = cp.run_metadata.launches = 0
     tool = radixbench.main(["--n", str(RADIX_N), "--k", str(K), "--seed",
                             str(seed), "--out",
                             os.path.join(work, "radixbench.json")])
     launches = cp.partition.launches
+    meta_launches = cp.run_metadata.launches
 
     def check(keys):
         n = keys.numel()
@@ -404,6 +451,7 @@ def phase_radix(data, work, seed):
         return {"max_abs_err": err,
                 "ms": time_ms(lambda: cp.partition(keys, K), 10),
                 "kernel_ms": time_ms(lambda: cp.partition(keys, K, meta), 10),
+                "device_us": device_us(lambda: cp.partition(keys, K)),
                 "plain_ms": time_ms(lambda: cp.partition_torch(keys, K), 3),
                 "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
                 "library_ms": None, "shape": [n],
@@ -413,7 +461,7 @@ def phase_radix(data, work, seed):
     row = {"name": "partition", "route": "cuda",
            "source": "rufus_tpu_torch/csrc/partition.cu",
            "replaces": "tools/radixbench.py:159", "launches": launches,
-           **check(keys)}
+           "metadata_launches": meta_launches, **check(keys)}
     del keys
     raw = next(pending_buffers(data))
     fold = check(raw)
@@ -422,8 +470,9 @@ def phase_radix(data, work, seed):
     row["fold_buffer"] = fold
     row["max_abs_err"] = max(row["max_abs_err"], fold["max_abs_err"])
     emit({"phase": "kernel", **share_of_bound(row)})
-    if launches <= 0:
-        raise AssertionError("the radix tool's path never launched partition")
+    if launches <= 0 or meta_launches <= 0:
+        raise AssertionError("the radix tool's path never launched partition "
+                             f"({launches}) or its metadata ({meta_launches})")
     if row["max_abs_err"] != 0:
         raise AssertionError(f"partition disagrees with its plain version "
                              f"(max_abs_err {row['max_abs_err']})")
@@ -448,7 +497,7 @@ def main():
         data = phase_data(os.path.join(work, "fastq"), args.genome_mbp,
                           args.seed)
         sl, hl_path = phase_slice(data, os.path.join(work, "run"))
-        rows = phase_kernels(data, hl_path, sl["launches"])
+        rows = phase_kernels(data, hl_path, sl["launches"], args.seed)
         phase_slice_busy(sl, rows)
         rows.append(phase_radix(data, work, args.seed))
     finally:

@@ -213,27 +213,6 @@ __host__ __device__ constexpr int ring_words(int kind) {
   return kStages * stage_words(kind) + (kind == 2 ? 0 : kTile);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
-               :: "r"((unsigned)__cvta_generic_to_shared(smem)), "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;"
-               :: "r"((unsigned)__cvta_generic_to_shared(smem)), "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
-}
-
 // Start the copy of tile `tile` into a stage (keys at sk, counts at sv) and
 // of the key before the tile into *sprev. A whole, 16-byte aligned tile
 // goes by cp.async; any other is filled with plain loads, sentinel-padded.
@@ -583,27 +562,12 @@ struct MainLaunch {
   long long resident;
 };
 
-constexpr int kMaxDevices = 64;
 constexpr int kCountBlocksPerSm = 8;  // of the count pass
 
-// The current card and its SM count.
-cudaError_t current_card(int& dev, int& sms) {
-  static int cache[kMaxDevices] = {};
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (cache[dev] == 0 &&
-      (e = cudaDeviceGetAttribute(&cache[dev], cudaDevAttrMultiProcessorCount,
-                                  dev)) != cudaSuccess)
-    return e;
-  sms = cache[dev];
-  return cudaSuccess;
-}
-
 cudaError_t main_launch(int kind, MainLaunch& out) {
-  static MainLaunch cache[kMaxDevices][3] = {};
+  static MainLaunch cache[RT_MAX_DEVICES][3] = {};
   int dev = 0, sms = 0;
-  cudaError_t e = current_card(dev, sms);
+  cudaError_t e = rt_current_card(dev, sms);
   if (e != cudaSuccess) return e;
   MainLaunch& c = cache[dev][kind];
   if (c.kernel == nullptr) {
@@ -654,7 +618,7 @@ extern "C" int rt_compact_count(const long long* keys, long long n,
   const Scratch d = scratch_layout(scratch, nt);
   if (nt > 0) {
     int dev = 0, sms = 0;
-    const cudaError_t e = current_card(dev, sms);
+    const cudaError_t e = rt_current_card(dev, sms);
     if (e != cudaSuccess) return (int)e;
     const long long want = (nt + kWarps - 1) / kWarps;
     const long long blocks = (long long)kCountBlocksPerSm * sms;

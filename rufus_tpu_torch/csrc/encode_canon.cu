@@ -8,7 +8,8 @@
 // integer work close behind. The design, for this card:
 //
 //   pack   A block takes `rows` reads. A thread loads 16 bases (one 16-byte
-//          load where L and the pointer allow, bytes otherwise) and turns
+//          load where L and the pointer allow, bytes otherwise; the helpers
+//          shared with window_hits.cu are in csrc/packed.cuh) and turns
 //          them, four at a time in a 32-bit register, into 32 bits of 2-bit
 //          codes, 32 bits of complement codes in reverse order, and 16
 //          bad-base bits. Shared memory then holds, per read, the codes
@@ -24,31 +25,26 @@
 //   store  One 16-byte store a thread on neighbouring addresses; an odd
 //          first or last element of the span goes out alone.
 //
-// The other candidate, keeping the rolling recurrence (rt_roll) with a
+// The other candidate, keeping the rolling recurrence with a
 // staged output tile, does k-1 steps of prologue per thread or serialises
 // a whole read in one thread; the field extraction needs neither.
 
-#include "common.cuh"
+#include "packed.cuh"
 
 namespace {
 
+using packed::field;
+using packed::gather2;
+using packed::kLow1;
+using packed::kLow2;
+using packed::row_words;
+
 constexpr int kThreads = 256;
-constexpr unsigned kLow2 = 0x03030303u, kLow1 = 0x01010101u;
-
-// 64-bit words of packed codes per read: the bases, plus one word so that
-// a field may always read the word after its first.
-__host__ __device__ inline int row_words(int L) { return (L + 31) / 32 + 1; }
-
-// The byte v of each of the 4 lanes of x gathered into one byte, 2 bits a
-// lane, the lowest lane in the lowest bits.
-__device__ __forceinline__ unsigned gather2(unsigned x) {
-  return (x | (x >> 6) | (x >> 12) | (x >> 18)) & 0xFFu;
-}
 
 // Four ASCII bases (the first in the lowest byte) -> 8 bits of codes with
 // the first base highest, 8 bits of complement codes with the last base
 // highest, 4 bad-base bits with the first base lowest. The same arithmetic
-// as rt_base_code, four lanes at a time.
+// as ops/codec.encode_bases, four lanes at a time.
 __device__ __forceinline__ void pack4(unsigned ascii, unsigned& fwd,
                                       unsigned& rc, unsigned& bad) {
   const unsigned u = ascii & 0xDFDFDFDFu;
@@ -58,15 +54,7 @@ __device__ __forceinline__ void pack4(unsigned ascii, unsigned& fwd,
   c ^= (c >> 1) & kLow1;
   fwd = gather2(__byte_perm(c, 0u, 0x0123u));
   rc = gather2(c ^ kLow2);
-  const unsigned b = ~ok & kLow1;
-  bad = (b | (b >> 7) | (b >> 14) | (b >> 21)) & 0xFu;
-}
-
-// The top 64 bits of (hi:lo) << s, 0 <= s <= 62.
-__device__ __forceinline__ unsigned long long field(unsigned long long hi,
-                                                    unsigned long long lo,
-                                                    int s) {
-  return (hi << s) | ((lo >> 1) >> (63 - s));
+  bad = packed::lane_bits(~ok);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -89,21 +77,7 @@ encode_canon_kernel(const uint8_t* __restrict__ reads, long long B, int L,
   for (int t = threadIdx.x; t < nrows * chunks; t += kThreads) {
     const int r = t / chunks, c = t - r * chunks;
     unsigned a[4];
-    if (vec && 16 * c + 16 <= L) {
-      const uint4 v = *(const uint4*)(src + (long long)r * L + 16 * c);
-      a[0] = v.x, a[1] = v.y, a[2] = v.z, a[3] = v.w;
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = 0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int p = 16 * c + 4 * i + j;
-          const unsigned ch = p < L ? src[(long long)r * L + p] : (unsigned)'N';
-          a[i] |= ch << (8 * j);
-        }
-      }
-    }
+    packed::load16(src + (long long)r * L, L, c, vec, 'N', a);
     unsigned fwd = 0, rc = 0, bad = 0;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {

@@ -15,7 +15,8 @@ once, to its exact slot, so the output holds each key exactly once.
 
 On the H100 the work is bound by bytes: the keys are read once and written
 once. The run metadata (per-(block, bucket) counts and each run's cursor in
-the output) stays PyTorch, as the JAX tool computed it in XLA.
+the output) takes two more kernels on the card, a count pass over the keys
+and a scan of the counts; on the CPU it is the ``torch.bincount`` form.
 """
 
 from __future__ import annotations
@@ -40,11 +41,9 @@ def bucket_of(keys: torch.Tensor, k: int) -> torch.Tensor:
     return torch.clamp(keys >> _shift(k), 0, BUCKETS - 1)
 
 
-def run_metadata(keys: torch.Tensor, k: int):
-    """(runlen, cursors, offsets) of `keys`: runlen (nblocks, 16) counts the
-    keys of each bucket in each 8192-key block; cursors (nblocks, 16) is
-    where that run starts in the output (a bucket-major exclusive scan of
-    runlen); offsets (17,) bounds each bucket's region."""
+def run_metadata_torch(keys: torch.Tensor, k: int):
+    """Plain PyTorch version of ``run_metadata``: ``torch.bincount`` onto
+    16 bins a block, then a bucket-major exclusive scan."""
     n = keys.numel()
     nblk = -(-n // BLOCK)
     idx = bucket_of(keys, k)
@@ -55,6 +54,54 @@ def run_metadata(keys: torch.Tensor, k: int):
     offsets[1:] = torch.cumsum(runlen.sum(0), 0)
     cursors = torch.cumsum(runlen, 0) - runlen + offsets[:-1]
     return runlen, cursors, offsets
+
+
+_META_GROUPS = 1024  # the most runs of blocks the count kernel is given
+
+
+def _run_metadata_cuda(keys: torch.Tensor, k: int):
+    n = keys.numel()
+    nblk = -(-n // BLOCK)
+    runlen = torch.empty((nblk, BUCKETS), dtype=torch.int64,
+                         device=keys.device)
+    cursors = torch.empty_like(runlen)
+    offsets = torch.empty(BUCKETS + 1, dtype=torch.int64, device=keys.device)
+    groups = max(1, min(nblk, _META_GROUPS))
+    totals = torch.empty((groups, BUCKETS), dtype=torch.int64,
+                         device=keys.device)
+    P, I64, I32 = _build.P, _build.I64, _build.I32
+    fn = _build.function("partition", "rt_partition_meta",
+                         [P, I64, I32, P, P, P, P, I32, P])
+    _build.check(fn(_build.ptr(keys), n, _shift(k), _build.ptr(runlen),
+                    _build.ptr(cursors), _build.ptr(offsets),
+                    _build.ptr(totals), groups,
+                    _build.stream_ptr(keys.device)), "partition metadata")
+    run_metadata.launches += 1
+    return runlen, cursors, offsets
+
+
+def run_metadata(keys: torch.Tensor, k: int):
+    """(runlen, cursors, offsets) of `keys`: runlen (nblocks, 16) counts the
+    keys of each bucket in each 8192-key block; cursors (nblocks, 16) is
+    where that run starts in the output (a bucket-major exclusive scan of
+    runlen); offsets (17,) bounds each bucket's region. All int64.
+
+    A CUDA tensor goes through the count and scan kernels; a CPU tensor
+    through ``run_metadata_torch``."""
+    if keys.dim() != 1 or keys.dtype != torch.int64:
+        raise TypeError(f"keys must be a 1-D int64 tensor, got "
+                        f"{tuple(keys.shape)} {keys.dtype}")
+    _shift(k)
+    if keys.device.type == "cpu":
+        return run_metadata_torch(keys, k)
+    if keys.device.type != "cuda":
+        raise ValueError(f"unsupported device {keys.device}")
+    if not keys.is_contiguous():
+        raise ValueError("keys must be contiguous")
+    return _run_metadata_cuda(keys, k)
+
+
+run_metadata.launches = 0
 
 
 def block_sort_torch(keys: torch.Tensor) -> torch.Tensor:
@@ -79,15 +126,17 @@ def partition_torch(keys: torch.Tensor, k: int):
     return out, offsets
 
 
-def _partition_cuda(keys: torch.Tensor, k: int, cursors: torch.Tensor):
+def _partition_cuda(keys: torch.Tensor, k: int, runlen: torch.Tensor,
+                    cursors: torch.Tensor):
     out = torch.empty_like(keys)
     n = keys.numel()
     if n:
         P, I64, I32 = _build.P, _build.I64, _build.I32
-        fn = _build.function("partition", "rt_partition", [P, I64, I32, P, P, P])
-        _build.check(fn(_build.ptr(keys), n, _shift(k), _build.ptr(cursors),
-                        _build.ptr(out), _build.stream_ptr(keys.device)),
-                     "partition")
+        fn = _build.function("partition", "rt_partition",
+                             [P, I64, I32, P, P, P, P])
+        _build.check(fn(_build.ptr(keys), n, _shift(k), _build.ptr(runlen),
+                        _build.ptr(cursors), _build.ptr(out),
+                        _build.stream_ptr(keys.device)), "partition")
         partition.launches += 1
     return out
 
@@ -110,12 +159,13 @@ def partition(keys: torch.Tensor, k: int, meta=None):
         raise ValueError(f"unsupported device {keys.device}")
     if not keys.is_contiguous():
         raise ValueError("keys must be contiguous")
-    _, cursors, offsets = run_metadata(keys, k) if meta is None else meta
+    runlen, cursors, offsets = run_metadata(keys, k) if meta is None else meta
     nblk = -(-keys.numel() // BLOCK)
-    if (cursors.shape != (nblk, BUCKETS) or cursors.dtype != torch.int64
-            or cursors.device != keys.device or not cursors.is_contiguous()):
-        raise ValueError("meta does not belong to these keys")
-    return _partition_cuda(keys, k, cursors), offsets
+    for t in (runlen, cursors):
+        if (t.shape != (nblk, BUCKETS) or t.dtype != torch.int64
+                or t.device != keys.device or not t.is_contiguous()):
+            raise ValueError("meta does not belong to these keys")
+    return _partition_cuda(keys, k, runlen, cursors), offsets
 
 
 partition.launches = 0

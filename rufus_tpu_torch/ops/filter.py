@@ -9,7 +9,9 @@ rule (RUFUS.Filter.cpp:196-277).
 * a read pair is kept iff mate1's hit count >= threshold, else mate2's.
 
 ``window_hits`` is the kernel wrapper of ``ops/cuda_filter.py``; the port
-has this one exact path for any HashList size.
+has this one exact path for any HashList size. A caller that filters many
+batches against one HashList builds its ``hashlist_index`` once and passes
+it as ``index``.
 """
 
 from __future__ import annotations
@@ -21,17 +23,18 @@ from .cuda_filter import window_hits
 
 
 def filter_pairs(m1_reads, m1_quals, m1_lens, m2_reads, m2_quals, m2_lens,
-                 table_keys, k: int, min_q: int, threshold: int):
-    """Paired-end keep mask: mate1 hits >= T, OR (else) mate2 hits >= T."""
-    h1 = window_hits(m1_reads, m1_quals, m1_lens, table_keys, k, min_q)
-    h2 = window_hits(m2_reads, m2_quals, m2_lens, table_keys, k, min_q)
+                 table_keys, k: int, min_q: int, threshold: int, index=None):
+    """Paired-end keep mask: mate1 hits >= T, OR (else) mate2 hits >= T.
+    `index` is the table's ``hashlist_index``, when the caller keeps one."""
+    h1 = window_hits(m1_reads, m1_quals, m1_lens, table_keys, k, min_q, index)
+    h2 = window_hits(m2_reads, m2_quals, m2_lens, table_keys, k, min_q, index)
     return (h1 >= threshold) | (h2 >= threshold), h1, h2
 
 
 def filter_single(reads, quals, lens, table_keys, k: int, min_q: int,
-                  threshold: int):
+                  threshold: int, index=None):
     """Single-end keep mask (RUFUS.Filter.ss.cpp path)."""
-    h = window_hits(reads, quals, lens, table_keys, k, min_q)
+    h = window_hits(reads, quals, lens, table_keys, k, min_q, index)
     return h >= threshold, h
 
 

@@ -26,6 +26,7 @@ from ..convert import hashlist_keys_to_int64, table_from_numpy
 from ..io import fastq, hashlist as hio, progress
 from ..models import modeldist
 from ..ops import codec, count
+from ..ops.cuda_filter import hashlist_index
 from ..ops.filter import filter_pairs
 from ..ops.table import DeviceKmerTable, count_step, subtract_step
 from ..utils.trace import StageTimer, Throughput
@@ -283,6 +284,7 @@ class RufusPipeline:
             return m1_path, m2_path
         table = hashlist_keys_to_int64(hio.hashlist_keys(hl_path, cfg.k),
                                        self.device)
+        index = hashlist_index(table, cfg.k)
         kept = 0
         # tmp + rename: a crash mid-stage must not leave partial outputs
         # that the skip-resume logic would trust on the next run
@@ -293,7 +295,7 @@ class RufusPipeline:
                 r1, q1, l1, r2, q2, l2 = (self._to_device(t) for t in tensors)
                 keep, _, _ = filter_pairs(r1, q1, l1, r2, q2, l2, table,
                                           cfg.k, cfg.filter_min_q,
-                                          cfg.filter_k_threshold)
+                                          cfg.filter_k_threshold, index)
                 for i in np.flatnonzero(keep.cpu().numpy()):
                     name = b1.name(i)
                     s1, sq1 = b1.text(i)

@@ -159,6 +159,91 @@ def test_window_hits_kernel(T, L):
         assert int(got.sum()) > 0
 
 
+def _switch_T(L):
+    """The largest table whose keys the kernel stages in shared memory."""
+    T = 1
+    while cuda_filter.smem_plan(L, T + 1,
+                                cuda_filter.index_bits(T + 1, 25))[1]:
+        T += 1
+    return T
+
+
+def _edge_table(rng, case, g, k, T):
+    """T sorted unique keys: canonical windows of the genome the reads come
+    from (so some windows hit) and random keys below 4^k (mostly misses);
+    "one_bucket": one window's key and keys of its index bucket only;
+    "ends": also 0 and 4^k - 1, the ends of the key range."""
+    top = 1 << (2 * k)
+    must = np.unique(codec.keys_u64_to_i64(codec.strs_to_kmers(
+        [codec.canonical_str(g[s:s + k].tobytes().decode())
+         for s in rng.integers(0, len(g) - k, T // 2 + 1)], k)))
+    if case == "one_bucket":
+        sh = 2 * k - cuda_filter.index_bits(T, k)
+        lo = int(must[0]) >> sh << sh
+        must = must[:1]
+        fill = rng.integers(lo, lo + (1 << sh), 2 * T)
+    else:
+        fill = rng.integers(0, top, 2 * T)
+    if case == "ends":
+        must = np.concatenate([[0, top - 1], must])
+    must = np.unique(must)[:T]
+    fill = rng.permutation(np.setdiff1d(fill, must))[:T - must.size]
+    return np.sort(np.concatenate([must, fill]))
+
+
+# (T, L, k, case): index widths at T = 2^b - 1, 2^b, 2^b + 1; the
+# shared-memory switch; one bucket; the key range's ends; k and L edges
+_WINDOW_EDGES = [
+    (0, 160, 25, "plain"), (1, 160, 25, "plain"), (4095, 160, 25, "plain"),
+    (4096, 160, 25, "plain"), (4097, 160, 25, "plain"),
+    (16385, 160, 25, "plain"), ("switch", 160, 25, "plain"),
+    ("switch+1", 160, 25, "plain"), (65536, 160, 25, "plain"),
+    (3000, 160, 25, "one_bucket"), (40000, 160, 25, "one_bucket"),
+    (300, 160, 11, "ends"), (3000, 160, 25, "ends"), (3000, 160, 31, "ends"),
+    (2498, 1024, 25, "plain"), (2498, 151, 25, "plain"),
+    (65536, 1024, 31, "plain"), (300, 151, 11, "plain"),
+]
+
+
+@pytest.mark.parametrize("T,L,k,case", _WINDOW_EDGES)
+def test_window_hits_kernel_edges(T, L, k, case):
+    dev = _card()
+    if T in ("switch", "switch+1"):
+        T = _switch_T(L) + (T == "switch+1")
+        assert cuda_filter.smem_plan(L, T, cuda_filter.index_bits(T, k))[1] \
+            == (T == _switch_T(L))
+    rng = np.random.default_rng([T, L, k, len(case)])
+    B = 2000
+    reads, quals, lens, g = _reads(rng, B, L, k)
+    lens[:3] = [0, L, k]
+    reads[3, :] = ord("A")  # key 0, forward
+    reads[4, :] = ord("t")  # key 0, reverse complement, lowercase
+    lens[3:5] = L
+    quals[3:5] = ord("I")
+    table = _edge_table(rng, case, g, k, T)
+    assert table.size == T
+    # (B, L) views at byte offset 1 of a flat buffer: contiguous, unaligned
+    flat = lambda a: torch.from_numpy(  # noqa: E731
+        np.concatenate([[0], a.reshape(-1)]).astype(np.uint8)).to(dev)[1:]
+    r, q = flat(reads).view(B, L), flat(quals).view(B, L)
+    assert r.data_ptr() % 16 == 1 and r.is_contiguous()
+    l = torch.from_numpy(lens).to(dev)
+    t = torch.from_numpy(table).to(dev)
+    want = cuda_filter.window_hits_torch(r, q, l, t, k, 15)
+    index = cuda_filter.hashlist_index(t, k)
+    for ix in (None, index):
+        got = cuda_filter.window_hits(r, q, l, t, k, 15, ix)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    if case == "ends":
+        assert int(want[3]) > 0 and int(want[4]) > 0
+    if T >= 100:
+        assert int(want.sum()) > 0
+    # aligned rows as well
+    r, q = (torch.from_numpy(a).to(dev) for a in (reads, quals))
+    assert torch.equal(cuda_filter.window_hits(r, q, l, t, k, 15, index), want)
+
+
 @pytest.mark.parametrize("n,k,one_bucket", [
     (0, 25, False), (1, 25, False), (8191, 25, False), (8192, 25, False),
     (3 * 8192 + 5, 25, False), (3_000_000, 25, False),
@@ -180,6 +265,59 @@ def test_partition_kernel(n, k, one_bucket):
     assert torch.equal(got, want)
     assert torch.equal(got_off, want_off)
     assert int(got_off[-1]) == n
+
+
+def _partition_fill(fill, n, k, g):
+    top = 1 << (2 * k)
+    if fill == "sentinel_block":  # a whole 8192-key block of sentinels
+        keys = torch.randint(0, top, (n,), generator=g)
+        keys[8192:2 * 8192] = codec.SENTINEL
+    elif fill == "bucket15":  # every key in the last bucket, no sentinel
+        keys = torch.randint(15 << (2 * k - 4), top, (n,), generator=g)
+    elif fill == "all_sentinel":
+        keys = torch.full((n,), codec.SENTINEL, dtype=torch.int64)
+    elif fill == "negative":  # clamped into bucket 0
+        keys = torch.randint(-top, top, (n,), generator=g)
+    else:
+        pool = torch.randint(0, top, (max(1, n // 3),), generator=g)
+        keys = pool[torch.randint(0, pool.numel(), (n,), generator=g)]
+        keys[torch.rand(n, generator=g) < 0.1] = codec.SENTINEL
+    return keys
+
+
+@pytest.mark.parametrize("n,k,fill", [
+    (3 * 8192 + 5, 25, "sentinel_block"), (3 * 8192 + 5, 25, "bucket15"),
+    (3 * 8192, 31, "bucket15"), (8193, 25, "all_sentinel"),
+    (8193, 25, "mixed"), (2 * 8192 + 1, 31, "mixed"), (1, 31, "mixed"),
+    (100_003, 25, "negative"), (26_000_000, 25, "mixed")])
+def test_partition_kernel_fills(n, k, fill):
+    dev = _card()
+    g = torch.Generator(device="cpu").manual_seed(n + k + len(fill))
+    keys = _partition_fill(fill, n, k, g).to(dev)
+    got, got_off = cuda_partition.partition(keys, k)
+    want, want_off = cuda_partition.partition_torch(keys, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got_off, want_off)
+
+
+@pytest.mark.parametrize("n,k,fill", [
+    (0, 25, "mixed"), (1, 25, "mixed"), (8191, 25, "mixed"),
+    (8193, 25, "mixed"), (3 * 8192 + 5, 31, "bucket15"),
+    (3 * 8192 + 5, 25, "sentinel_block"), (3_000_000, 25, "mixed"),
+    (106_954_752, 25, "mixed")])
+def test_run_metadata_kernel(n, k, fill):
+    """The count and scan kernels against run_metadata_torch's bincount."""
+    dev = _card()
+    g = torch.Generator(device="cpu").manual_seed(n + k)
+    keys = _partition_fill(fill, n, k, g)
+    want = cuda_partition.run_metadata_torch(keys, k)
+    before = cuda_partition.run_metadata.launches
+    got = cuda_partition.run_metadata(keys.to(dev), k)
+    torch.cuda.synchronize()
+    assert cuda_partition.run_metadata.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
 
 
 def test_slice_on_card_equals_slice_on_cpu(tmp_path):

@@ -263,6 +263,192 @@ def test_window_hits_matches_pallas_and_xla(k, T):
         np.testing.assert_array_equal(got, want)
 
 
+def _model_window_hits(reads, quals, lens, table, k, min_q):
+    """numpy model of csrc/window_hits.cu's lookup: a read's windows
+    w < min(W, len - k) whose k bases are ACGT with good quals, each found
+    through hashlist_index's prefix range of the table and a binary search
+    inside it. Returns the hits and the longest range searched."""
+    B, L = reads.shape
+    W = L - k + 1
+    key = cuda_count.encode_canon_torch(torch.from_numpy(reads), k).numpy()
+    qbad = np.cumsum(quals.astype(np.int32) - 33 < min_q, axis=1)
+    qbad = np.pad(qbad, ((0, 0), (1, 0)))
+    qok = qbad[:, k:] == qbad[:, :W]
+    w = np.arange(W)[None, :]
+    scanned = (w < np.minimum(W, lens[:, None] - k)) & qok & \
+        (key != codec.SENTINEL)
+    t = codec.keys_u64_to_i64(table)
+    index = cuda_filter.hashlist_index(torch.from_numpy(t), k)
+    off = index.offsets.numpy().astype(np.int64)
+    rows, cols = np.nonzero(scanned)
+    kk = key[rows, cols]
+    p = kk >> (2 * k - index.bits)
+    lo, hi = off[p], off[p + 1]
+    longest = int((hi - lo).max()) if kk.size else 0
+    found = np.zeros(kk.size, bool)
+    while (lo < hi).any():
+        act = lo < hi
+        mid = (lo + hi) // 2
+        v = t[np.minimum(mid, max(t.size - 1, 0))] if t.size else mid
+        found |= act & (v == kk)
+        lo = np.where(act & (v < kk), mid + 1, lo)
+        hi = np.where(act & (v >= kk), mid, hi)
+        hi = np.where(found, lo, hi)
+    hits = np.zeros(B, np.int32)
+    np.add.at(hits, rows[found], 1)
+    return hits, longest
+
+
+@pytest.mark.parametrize("T", [64, 300, 3000])
+def test_window_hits_index_lookup_model_matches_jax(T):
+    """The CUDA kernel's lookup (prefix range, then compare), modelled in
+    numpy, finds exactly the windows the JAX package counts: its XLA path,
+    and its Pallas kernel in interpret mode where it unrolls the table."""
+    k = 25
+    rng = np.random.default_rng(200 + T)
+    reads, quals, lens, table = _filter_case(rng, k, 256, 80, T)
+    got, longest = _model_window_hits(reads, quals, lens, table, k, 15)
+    assert got.sum() > 0 and longest <= 8
+    want = np.asarray(jfilter.window_hits(
+        jnp.asarray(reads), jnp.asarray(quals), jnp.asarray(lens),
+        jnp.asarray(table), k, 15))
+    np.testing.assert_array_equal(got, want)
+    if T <= 1024:
+        hi, lo = pallas_filter.split_table(table)
+        want = np.asarray(pallas_filter.pallas_window_hits(
+            jnp.asarray(reads), jnp.asarray(quals), jnp.asarray(lens),
+            jnp.asarray(hi), jnp.asarray(lo), k, 15, interpret=True))
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("T,k", [(0, 25), (1, 25), (4, 1), (64, 11),
+                                 (2498, 25), (3000, 31), (4097, 25),
+                                 (65536, 25)])
+def test_hashlist_index_matches_searchsorted(T, k):
+    rng = np.random.default_rng(T + k)
+    table = np.unique(rng.integers(0, 1 << (2 * k), 2 * T + 8))
+    table = np.sort(rng.permutation(table)[:T])
+    index = cuda_filter.hashlist_index(torch.from_numpy(table), k)
+    assert index.bits == cuda_filter.index_bits(T, k) <= min(
+        cuda_filter.MAX_INDEX_BITS, 2 * k)
+    assert (index.k, index.size) == (k, T)
+    assert index.offsets.dtype == torch.int32
+    edges = np.arange((1 << index.bits) + 1, dtype=np.int64) << (
+        2 * k - index.bits)
+    np.testing.assert_array_equal(index.offsets.numpy(),
+                                  np.searchsorted(table, edges))
+    assert int(index.offsets[-1]) == T
+
+
+def test_hashlist_index_worst_bucket_of_canonical_keys():
+    """Canonical keys (the min of two strands) crowd the low prefixes; the
+    index's worst bucket stays a few keys, so the search inside it is a
+    few steps."""
+    k = 25
+    rng = np.random.default_rng(3)
+    for T, limit in ((2498, 8), (3000, 8), (65536, 16)):
+        g = _genome(rng, 4 * T + k)
+        win = [g[s:s + k].tobytes().decode()
+               for s in rng.integers(0, len(g) - k, 2 * T)]
+        table = np.unique(codec.keys_u64_to_i64(codec.strs_to_kmers(
+            [codec.canonical_str(w) for w in win], k)))
+        table = np.sort(rng.permutation(table)[:T])
+        index = cuda_filter.hashlist_index(torch.from_numpy(table), k)
+        sizes = np.diff(index.offsets.numpy())
+        assert sizes.sum() == T and sizes.mean() <= max(1, T >> 15)
+        assert sizes.max() <= limit, (T, sizes.max())
+
+
+def _lane_bits(x):
+    b = x & np.uint32(0x01010101)
+    return (b | (b >> 7) | (b >> 14) | (b >> 21)) & np.uint32(0xF)
+
+
+def _byte_perm(x, sel):
+    """__byte_perm(x, 0, sel) for selectors 0-3 in each nibble."""
+    out = np.zeros_like(x)
+    for n in range(4):
+        byte = (sel >> np.uint32(4 * n)) & np.uint32(7)
+        pick = np.where(byte < 4, (x >> (np.uint32(8) * byte)) & np.uint32(0xFF),
+                        np.uint32(0))
+        out |= pick << np.uint32(8 * n)
+    return out
+
+
+def test_window_hits_packing_arithmetic_model():
+    """csrc/window_hits.cu:codes4 and qual_bad, modelled
+    in numpy over every byte value: codes and bad bits as ops/codec's
+    encode_bases, quals bad iff below the threshold, for every threshold
+    the kernel takes the fast route for (<= 128)."""
+    rng = np.random.default_rng(21)
+    lanes = np.concatenate([np.arange(256), rng.integers(0, 256, 4092)])
+    words = lanes.reshape(-1, 4).astype(np.uint32)
+    x = (words[:, 0] | words[:, 1] << 8 | words[:, 2] << 16
+         | words[:, 3] << 24).astype(np.uint32)
+    u = x & np.uint32(0xDFDFDFDF)
+    c = (u >> np.uint32(1)) & np.uint32(0x03030303)
+    c ^= (c >> np.uint32(1)) & np.uint32(0x01010101)
+    sel = _byte_perm(c | (c >> np.uint32(4)), np.uint32(0x4420))
+    d = u ^ _byte_perm(np.full_like(x, 0x54474341), sel)
+    bad7 = ((d & np.uint32(0x7F7F7F7F)) + np.uint32(0x7F7F7F7F)) | d
+    bad = _lane_bits(bad7 >> np.uint32(7))
+    codes = codec.encode_bases(torch.from_numpy(
+        words.astype(np.uint8))).numpy()
+    for i in range(4):
+        want_bad = codes[:, i] == codec.INVALID
+        np.testing.assert_array_equal((bad >> np.uint32(i)) & 1, want_bad)
+        got_code = (c >> np.uint32(8 * i)) & np.uint32(3)
+        np.testing.assert_array_equal(got_code[~want_bad],
+                                      codes[~want_bad, i])
+    for thr in (0, 1, 33, 48, 100, 127, 128):
+        t4 = np.uint32(min(thr, 255) * 0x01010101)
+        ok = (x & np.uint32(0x80808080)) | ((x | np.uint32(0x80808080)) - t4)
+        both = _lane_bits((bad7 | ~ok) >> np.uint32(7))  # x as bases, quals
+        for i in range(4):
+            np.testing.assert_array_equal(
+                (both >> np.uint32(i)) & 1,
+                (codes[:, i] == codec.INVALID) | (words[:, i] < thr))
+
+
+def test_revcomp_bit_reversal_model():
+    """csrc/window_hits.cu:revcomp, modelled on Python ints: the 2k-bit key's
+    reverse complement, as ops/codec's canonical form takes it."""
+    rng = np.random.default_rng(22)
+    for k in (1, 11, 25, 31):
+        strs = ["".join(rng.choice(list("ACGT"), k)) for _ in range(50)]
+        keys = codec.strs_to_kmers(strs, k)
+        comp = str.maketrans("ACGT", "TGCA")
+        rc = codec.strs_to_kmers([s[::-1].translate(comp) for s in strs], k)
+        for key, want in zip(keys.tolist(), rc.tolist()):
+            x = (key << (64 - 2 * k)) & ((1 << 64) - 1)
+            r = int(f"{x:064b}"[::-1], 2)
+            r = ((r >> 1) & 0x5555555555555555) | \
+                ((r & 0x5555555555555555) << 1)
+            assert r ^ ((1 << (2 * k)) - 1) == want
+
+
+def test_filter_pairs_with_and_without_index():
+    k = 25
+    rng = np.random.default_rng(13)
+    r1, q1, l1, table = _filter_case(rng, k, 256, 80, 400)
+    r2, q2, l2, _ = _filter_case(rng, k, 256, 80, 10)
+    t = torch.from_numpy(codec.keys_u64_to_i64(table))
+    mates = [torch.from_numpy(a) for a in (r1, q1, l1, r2, q2, l2)]
+    index = cuda_filter.hashlist_index(t, k)
+    without = pfilter.filter_pairs(*mates, t, k, 15, 2)
+    with_ix = pfilter.filter_pairs(*mates, t, k, 15, 2, index)
+    for a, b in zip(without, with_ix):
+        assert torch.equal(a, b)
+    assert 0 < int(with_ix[0].sum()) < len(r1)
+    keep, h = pfilter.filter_single(mates[0], mates[1], mates[2], t, k, 15,
+                                    2, index)
+    assert torch.equal(h, without[1])
+    with pytest.raises(ValueError):  # an index of another table or k
+        pfilter.filter_pairs(*mates, t[1:], k, 15, 2, index)
+    with pytest.raises(ValueError):
+        pfilter.filter_pairs(*mates, t, 23, 15, 2, index)
+
+
 def test_window_hits_large_table_matches_bloom_verify_path():
     """Above SMALL_TABLE_MAX the JAX pipeline uses Bloom candidates plus an
     exact host verify; the port's one exact path gives the same hits."""

@@ -175,7 +175,138 @@ def test_partition_rejects_bad_input():
             cp.partition(torch.zeros(8, dtype=torch.int64), k)
 
 
-# (e) the tool
+def test_run_metadata_routes_cpu_tensors_and_rejects_bad_input():
+    keys = torch.from_numpy(_keys(np.random.default_rng(4), 2 * BLOCK + 3, 25))
+    before = cp.run_metadata.launches
+    for a, b in zip(cp.run_metadata(keys, 25),
+                    cp.run_metadata_torch(keys, 25)):
+        assert torch.equal(a, b)
+    assert cp.run_metadata.launches == before
+    with pytest.raises(TypeError):
+        cp.run_metadata(keys.to(torch.int32), 25)
+    with pytest.raises(ValueError):
+        cp.run_metadata(torch.zeros(8, dtype=torch.int64, device="meta"), 25)
+
+
+# (e) models of the CUDA kernels' index arithmetic (csrc/partition.cu): the
+# kernels run only on the card, tests/test_torch_gpu.py holds them to the
+# plain version there
+
+
+THREADS, ITEMS = 512, 16
+
+
+def _thread_stage(x, S, size):
+    """partition.cu's thread_stage<S> with base 0: x[:, j] and x[:, j + S]
+    for j with bit S clear, ascending where (j & size) == 0."""
+    for j in range(ITEMS):
+        if j & S:
+            continue
+        up = (j & size) == 0
+        lo, hi = x[:, j].copy(), x[:, j + S].copy()
+        swap = (lo > hi) if up else (lo < hi)
+        x[:, j] = np.where(swap, hi, lo)
+        x[:, j + S] = np.where(swap, lo, hi)
+
+
+def _kernel_block_sort(keys):
+    """partition_kernel's sort of one block: each thread's 16 keys (x[t])
+    through the bitonic network in registers, then 9 levels of merge path,
+    thread t making positions 16t .. 16t+15 of its merged pair from the
+    diagonal's split and a serial merge, exhausted runs read as INT64_MAX."""
+    x = np.full(BLOCK, I64_MAX, np.int64)
+    x[: len(keys)] = keys
+    x = x.reshape(THREADS, ITEMS).copy()
+    for size in (2, 4, 8, 16):
+        for S in (8, 4, 2, 1):
+            if S < size:
+                _thread_stage(x, S, size)
+    d0 = ITEMS * np.arange(THREADS)
+    run = ITEMS
+    while run < BLOCK:
+        s = x.reshape(-1).copy()
+        a0 = d0 & ~(2 * run - 1)
+        b0 = a0 + run
+        d = d0 - a0
+        lo, hi = np.maximum(0, d - run), np.minimum(d, run)
+        while (lo < hi).any():
+            act = lo < hi
+            mid = (lo + hi) >> 1
+            le = s[a0 + np.where(act, mid, 0)] <= \
+                s[b0 + np.where(act, d - 1 - mid, 0)]
+            lo = np.where(act & le, mid + 1, lo)
+            hi = np.where(act & ~le, mid, hi)
+        ia, ib = a0 + lo, b0 + d - lo
+        ae, be = b0, b0 + run
+
+        def at(i, end):
+            return np.where(i < end, s[np.minimum(i, BLOCK - 1)], I64_MAX)
+
+        av, bv = at(ia, ae), at(ib, be)
+        for u in range(ITEMS):
+            ta = av <= bv
+            x[:, u] = np.where(ta, av, bv)
+            ia, ib = ia + ta, ib + ~ta
+            v = np.where(ta, at(ia, ae), at(ib, be))
+            av, bv = np.where(ta, v, av), np.where(ta, bv, v)
+        run <<= 1
+    return x.reshape(-1)[: len(keys)]
+
+
+@pytest.mark.parametrize("n,fill", [(BLOCK, "mixed"), (BLOCK - 1000, "mixed"),
+                                    (1, "mixed"), (BLOCK, "one_key"),
+                                    (BLOCK, "descending")])
+def test_kernel_sort_network_model(n, fill):
+    rng = np.random.default_rng(n + len(fill))
+    keys = _keys(rng, n, 25)
+    if fill == "one_key":
+        keys[:] = keys[0]
+    elif fill == "descending":
+        keys = np.sort(keys)[::-1].copy()
+    got = _kernel_block_sort(keys)
+    np.testing.assert_array_equal(got, np.sort(keys))
+    if fill == "mixed" and n == BLOCK:
+        np.testing.assert_array_equal(got, _bitonic_block_sort(keys))
+
+
+def _kernel_run_metadata(keys, k, sms, groups_cap=1024):
+    """count_kernel and cursor_kernel's grouping: runs of per_group blocks,
+    an exclusive scan inside each run, the runs' totals scanned bucket by
+    bucket."""
+    n = len(keys)
+    nblk = -(-n // BLOCK)
+    groups = min(nblk, 2 * sms, groups_cap)
+    per = -(-nblk // groups)
+    groups = -(-nblk // per)
+    bucket = np.clip(keys >> (2 * k - 4), 0, NB - 1)
+    runlen = np.zeros((nblk, NB), np.int64)
+    np.add.at(runlen, (np.arange(n) // BLOCK, bucket), 1)
+    cursors = np.zeros_like(runlen)
+    totals = np.zeros((groups, NB), np.int64)
+    for g in range(groups):
+        rows = runlen[g * per:(g + 1) * per]
+        cursors[g * per:(g + 1) * per] = np.cumsum(rows, 0) - rows
+        totals[g] = rows.sum(0)
+    every = totals.sum(0)
+    offsets = np.concatenate([[0], np.cumsum(every)])
+    for g in range(groups):
+        base = offsets[:-1] + totals[:g].sum(0)
+        cursors[g * per:(g + 1) * per] += base
+    return runlen, cursors, offsets
+
+
+@pytest.mark.parametrize("n,sms", [(1, 132), (BLOCK + 1, 132),
+                                   (40 * BLOCK + 17, 132), (40 * BLOCK, 3),
+                                   (300 * BLOCK + 5, 132), (37 * BLOCK, 7)])
+def test_kernel_metadata_model(n, sms):
+    keys = _keys(np.random.default_rng(n + sms), n, 25)
+    got = _kernel_run_metadata(keys, 25, sms)
+    want = cp.run_metadata_torch(torch.from_numpy(keys), 25)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b.numpy())
+
+
+# (f) the tool
 
 
 def test_radixbench_on_cpu_returns_every_field(tmp_path):
