@@ -7,20 +7,40 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device  - the card's name and count (fails without a CUDA device);
 2. build   - compiles the CUDA kernels from rufus_tpu_torch/csrc/ (one
-             nvcc per source, in parallel) and prints ptxas's register and
-             shared-memory figures;
+             nvcc per source, in parallel) and, beside them, the host
+             decoders from rufus_tpu_torch/native/ (g++); prints the
+             seconds of each and ptxas's register and shared-memory
+             figures;
 3. data    - writes a synthetic trio from --seed as paired FASTQ: a random
              genome of --genome-mbp Mbp, 30x of 150 bp pairs per sample
              (0.2% substitution errors, 2% low-quality bases), the child
              with 100 de novo SNVs at VAF 0.5;
-4. slice   - runs the port's pipeline (RufusPipeline, batch_size 65536,
+4. slice   - runs the port's pipeline from the FASTQ files (the native
+             decoders; RufusPipeline, batch_size 65536,
              read_pad 160, k 25, the default ModelDist fit) through the
              filter with every kernel launch count set to 0 first; prints
              per-stage seconds (the model fit on its own line), unique
              k-mers, HashList size, kept pairs, peak device memory and the
              launches; checks every kernel launched and that kept pairs
              span >= 95 of the 100 spiked sites;
-5. kernels - each CUDA kernel against its plain PyTorch version on the card
+5. bam     - the same trio as coordinate-sorted aligned BAMs
+             (synthetic.write_trio_bams: the FASTQ reads at their true
+             positions, 0.5% of pairs unmapped, 0.1% extra secondary,
+             duplicate and supplementary records), then the port's pipeline
+             from the three BAMs with the launch counts set to 0: to the
+             count tables (stop_after "jhash"), whose histograms must equal
+             the FASTQ run's; then, with that run's ModelDist outputs
+             copied in (the fit is a function of the histogram), resumed
+             through the filter with no -q1/-q2 (the stranded pair stream of
+             the child BAM). Checks tables, histograms, the HashList and the
+             kept pair names against the FASTQ run, each kept pair's mates
+             against its FASTQ mates (as an unordered pair), every pipeline
+             kernel launched, >= 95 sites spanned; then single_end on the
+             child BAM, whose kept (name, read) multiset must equal the
+             FASTQ reads that filter_single keeps on the card. Prints each
+             stage's wall seconds beside the FASTQ run's, decode rates,
+             device peaks and the host's peak RSS;
+6. kernels - each CUDA kernel against its plain PyTorch version on the card
              at the main path's shapes, exact equality: encode_canon on a
              65536-read batch; compact_runs in both of its main-path modes,
              raw on one real 96 Mi-key pending buffer and counted on the
@@ -49,7 +69,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              sort of a merge. A slice_busy line then reckons the card's busy
              time in the count and filter stages, launches x ms of the
              kernels and sorts, beside each stage's wall time.
-6. radix   - the radix tool's path (python -m rufus_tpu_torch.tools.radixbench
+7. radix   - the radix tool's path (python -m rufus_tpu_torch.tools.radixbench
              at its default n, 25,993,216 random k 25 keys, with the
              partition and run-metadata counts set to 0 first), which prints
              its own JSON line; then the
@@ -68,6 +88,7 @@ Then the kernels line, the nvidia-smi name/power-limit line, and last the
 import argparse
 import json
 import os
+import resource
 import shutil
 import subprocess
 import sys
@@ -153,15 +174,25 @@ def phase_device():
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from rufus_tpu_torch.ops import _build
 
+    def timed(fn):
+        t = time.perf_counter()
+        return fn(), time.perf_counter() - t
+
+    # the kernels' nvcc processes and the host decoders' g++ at once
     t0 = time.perf_counter()
-    built = _build.build_all()
+    with ThreadPoolExecutor(2) as pool:
+        native = pool.submit(timed, _build.build_native)
+        built, _ = timed(_build.build_all)
+        so, native_s = native.result()
     ptxas = {name: [l.split("ptxas info    : ")[-1] for l in
                     b["ptxas"].splitlines() if "Used" in l]
              for name, b in built.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": ptxas})
+          "native_seconds": native_s, "native_library": so, "ptxas": ptxas})
 
 
 def phase_data(out_dir, genome_mbp, seed):
@@ -206,6 +237,7 @@ def phase_slice(data, workdir):
     launches = {name: fn.launches for name, fn in kernels.items()}
     stages = {s["stage"]: s for s in pipe.trace.stages}
     emit({"phase": "model", "seconds": stages["model"]["wall_s"]})
+    count_reads = sum(stages["count"]["reads"].values())
     with open(m1) as fh:
         kept = sum(1 for _ in fh) // 4
     spanned = synthetic.sites_spanned(m1, data["sites"])
@@ -221,7 +253,11 @@ def phase_slice(data, workdir):
             "max_memory_allocated": max(s.get("device_peak_bytes", 0)
                                         for s in stages.values()),
             "launches": launches,
-            "folds": stages["count"]["folds"]}
+            "folds": stages["count"]["folds"],
+            "count_reads_per_s": count_reads / stages["count"]["wall_s"],
+            "filter_pairs_per_s": (stages["filter"]["reads"]
+                                   / stages["filter"]["wall_s"]),
+            "host_peak_rss_bytes": peak_rss()}
     emit(info)
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
@@ -233,6 +269,172 @@ def phase_slice(data, workdir):
         raise AssertionError(f"kept pairs span {len(spanned)} of 100 spiked "
                              "sites (< 95)")
     return info, os.path.join(workdir, hl)
+
+
+def peak_rss() -> int:
+    """The process's peak resident set so far, in bytes."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def _fastq_pairs(paths):
+    """{name: sorted [(mate seq, qual)]} of a FASTQ pair."""
+    from rufus_tpu_torch.io import fastq
+
+    out = {}
+    for p in paths:
+        for name, seq, qual in fastq.read_fastq(p):
+            out.setdefault(name.split(" ")[0], []).append((seq, qual))
+    return {n: sorted(v) for n, v in out.items()}
+
+
+def _fastq_records(path):
+    with open(path) as f:
+        lines = f.read().split("\n")
+    return [tuple(lines[i:i + 4]) for i in range(0, len(lines) - 1, 4)]
+
+
+def phase_bam(data, work, fastq_wd, fastq_info, seed):
+    """The trio from BAMs through the filter, paired and single-end, held
+    to the FASTQ run in fastq_wd (see the module's docstring)."""
+    import collections
+
+    import numpy as np
+
+    from rufus_tpu_torch import synthetic
+    from rufus_tpu_torch.convert import hashlist_keys_to_int64
+    from rufus_tpu_torch.io import fastq, hashlist as hio
+    from rufus_tpu_torch.ops.cuda_filter import hashlist_index
+    from rufus_tpu_torch.ops.filter import filter_single
+    from rufus_tpu_torch.pipeline import RufusConfig, RufusPipeline
+
+    t0 = time.perf_counter()
+    bams = synthetic.write_trio_bams(data, os.path.join(work, "bam"),
+                                     seed=seed)
+    emit({"phase": "bam_data", "seconds": time.perf_counter() - t0,
+          "bam_bytes": {s: os.path.getsize(p) for s, p in bams.items()}})
+    wd = os.path.join(work, "bam_run")
+    fq_stub = {s: os.path.basename(data[s][0]) + ".generator"
+               for s in ("child", "mother", "father")}
+    bam_stub = {s: os.path.basename(p) + ".generator" for s, p in bams.items()}
+
+    def cfg(workdir, **over):
+        return RufusConfig(subject=bams["child"],
+                           controls=[bams["mother"], bams["father"]], k=K,
+                           batch_size=BATCH, read_pad=READ_PAD,
+                           workdir=workdir, device="cuda", **over)
+
+    kernels = _kernels()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    count_pipe = RufusPipeline(cfg(wd, stop_after="jhash"))
+    count_pipe.run()
+    torch.cuda.synchronize()
+    read = lambda p: open(p, "rb").read()  # noqa: E731
+    for s in bams:
+        a = os.path.join(wd, bam_stub[s] + ".Jhash.histo")
+        b = os.path.join(fastq_wd, fq_stub[s] + ".Jhash.histo")
+        if read(a) != read(b):
+            raise AssertionError(f"{s}: the BAM run's histogram differs "
+                                 "from the FASTQ run's")
+    for ext in (".Jhash.histo.7.7.model", ".Jhash.histo.7.7.dist"):
+        shutil.copy(os.path.join(fastq_wd, fq_stub["child"] + ext),
+                    os.path.join(wd, bam_stub["child"] + ext))
+    pipe = RufusPipeline(cfg(wd, stop_after="filter"))
+    m1 = pipe.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    stages = {s["stage"]: s for s in count_pipe.trace.stages}
+    stages.update({s["stage"]: s for s in pipe.trace.stages
+                   if s["stage"] != "count"})
+
+    # tables and histograms (above), HashList, kept pairs
+    for s in bams:
+        za = np.load(os.path.join(wd, bam_stub[s] + ".table.npz"))
+        zb = np.load(os.path.join(fastq_wd, fq_stub[s] + ".table.npz"))
+        if sorted(za.files) != sorted(zb.files) or not all(
+                np.array_equal(za[k], zb[k]) for k in zb.files):
+            raise AssertionError(f"{s}: the BAM run's table differs")
+    hl = [n for n in os.listdir(wd) if n.endswith(".HashList")][0]
+    fq_hl = [n for n in os.listdir(fastq_wd) if n.endswith(".HashList")][0]
+    if read(os.path.join(wd, hl)) != read(os.path.join(fastq_wd, fq_hl)):
+        raise AssertionError("the BAM run's HashList differs")
+    fq_pairs = _fastq_pairs(data["child"])
+    want = {r[0] for r in _fastq_records(os.path.join(
+        fastq_wd, fq_stub["child"] + ".Mutations.Mate1.fastq"))}
+    kept = list(zip(_fastq_records(m1), _fastq_records(
+        m1.replace("Mate1", "Mate2"))))
+    if {a[0] for a, _ in kept} != want:
+        raise AssertionError("the BAM run kept other pairs than the FASTQ "
+                             "run")
+    for a, b in kept:
+        if sorted([(a[1], a[3]), (b[1], b[3])]) != fq_pairs[a[0][1:]]:
+            raise AssertionError(f"kept pair {a[0]} is not its FASTQ pair")
+    spanned = synthetic.sites_spanned(m1, data["sites"])
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the BAM path never launched: "
+                             f"{launches}")
+    if len(spanned) < 95:
+        raise AssertionError(f"kept pairs span {len(spanned)} of 100 sites")
+
+    # single-end from the child BAM: its tables and HashList carried over,
+    # so the run resumes at the filter
+    se_wd = os.path.join(work, "bam_se")
+    os.makedirs(se_wd)
+    for n in os.listdir(wd):
+        if n.endswith((".table.npz", ".Jhash.histo", ".Jelly.chr", ".model",
+                       ".dist", ".HashList")):
+            shutil.copy(os.path.join(wd, n), se_wd)
+    t1 = time.perf_counter()
+    se_pipe = RufusPipeline(cfg(se_wd, stop_after="filter", single_end=True))
+    se_out = se_pipe.run()
+    torch.cuda.synchronize()
+    se_wall = time.perf_counter() - t1
+    se_filter = [s for s in se_pipe.trace.stages if s["stage"] == "filter"][0]
+    got = collections.Counter((r[0][1:], r[1]) for r in _fastq_records(se_out))
+    table = hashlist_keys_to_int64(hio.hashlist_keys(os.path.join(wd, hl), K),
+                                   "cuda")
+    index = hashlist_index(table, K)
+    expect = collections.Counter()
+    for path in data["child"]:
+        for b in fastq.fastq_batches(path, BATCH, READ_PAD, text=True,
+                                     max_width=1024):
+            r, q, l = (torch.from_numpy(a).cuda()
+                       for a in (b.seq, b.qual, b.lens))
+            keep, _ = filter_single(r, q, l, table, K, se_pipe.cfg.filter_min_q,
+                                    se_pipe.cfg.filter_k_threshold, index)
+            for i in np.flatnonzero(keep.cpu().numpy()):
+                expect[(b.name(i), b.text(i)[0])] += 1
+    if got != expect:
+        raise AssertionError(f"single-end kept {sum(got.values())} reads, "
+                             f"the card's reckoning {sum(expect.values())}")
+
+    count_reads = sum(stages["count"]["reads"].values())
+    info = {"phase": "bam", "wall_s": wall,
+            "stage_wall_s": {n: s["wall_s"] for n, s in stages.items()},
+            "fastq_stage_wall_s": fastq_info["stage_wall_s"],
+            "unique_kmers": stages["count"]["unique_kmers"],
+            "n_mutant": stages["hashlist"]["n_mutant"],
+            "kept_pairs": len(kept), "sites_spanned": int(len(spanned)),
+            "launches": launches,
+            "count_reads_per_s": count_reads / stages["count"]["wall_s"],
+            "fastq_count_reads_per_s": fastq_info["count_reads_per_s"],
+            "filter_pairs_per_s": (stages["filter"]["reads"]
+                                   / stages["filter"]["wall_s"]),
+            "fastq_filter_pairs_per_s": fastq_info["filter_pairs_per_s"],
+            "device_peak_bytes": {n: s.get("device_peak_bytes")
+                                  for n, s in stages.items()},
+            "single_end": {"wall_s": se_wall,
+                           "filter_wall_s": se_filter["wall_s"],
+                           "reads_per_s": (se_filter["reads"]
+                                           / se_filter["wall_s"]),
+                           "kept_reads": sum(got.values()),
+                           "device_peak_bytes": se_filter.get(
+                               "device_peak_bytes")},
+            "host_peak_rss_bytes": peak_rss()}
+    emit(info)
+    return info
 
 
 def pending_buffers(data):
@@ -497,6 +699,7 @@ def main():
         data = phase_data(os.path.join(work, "fastq"), args.genome_mbp,
                           args.seed)
         sl, hl_path = phase_slice(data, os.path.join(work, "run"))
+        phase_bam(data, work, os.path.join(work, "run"), sl, args.seed)
         rows = phase_kernels(data, hl_path, sl["launches"], args.seed)
         phase_slice_busy(sl, rows)
         rows.append(phase_radix(data, work, args.seed))

@@ -1,10 +1,11 @@
 """FASTQ text I/O and read batches for the device.
 
 ``read_fastq``, ``write_fastq`` and ``batch_reads`` are the reference's
-per-record helpers. ``fastq_batches`` / ``fastq_pair_batches`` are the
-port's feed: they parse whole byte chunks with numpy (newline search and
-one gather per field), so no per-read Python object is made, and yield
-fixed-size batches of 'N'-padded uint8 rows.
+per-record helpers. ``fastq_batches`` / ``fastq_pair_batches`` parse whole
+byte chunks with numpy (newline search and one gather per field), so no
+per-read Python object is made, and yield fixed-size batches of
+'N'-padded uint8 rows: the plain versions of the native decoders
+(``io/native.py``) that the pipeline reads FASTQ with.
 """
 
 from __future__ import annotations

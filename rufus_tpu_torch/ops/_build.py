@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host decoders.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by its own
 ``nvcc`` process into ``build/rufus_tpu_torch/<hash>/lib<name>.so`` beside
@@ -9,6 +9,10 @@ which keeps a cold build to seconds.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 ``check`` turns a non-zero code into an exception.
+
+The host decoders (``native/*.cpp``: BGZF/BAM and FASTQ) are one library,
+``librufus_torch_io.so``, built the same way by the host compiler
+(``build_native``); a failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -25,9 +29,12 @@ import threading
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+NATIVE_DIR = os.path.join(PKG_DIR, "native")
 BUILD_ROOT = os.path.join(os.path.dirname(PKG_DIR), "build", "rufus_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
+HOST_LIBS = ["-lz", "-lpthread"]
 
 _lock = threading.Lock()
 
@@ -47,9 +54,9 @@ def _sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
-def _build_dir(sources) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+def _build_dir(flags, files) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for s in files:
         h.update(os.path.basename(s).encode())
         with open(s, "rb") as f:
             h.update(f.read())
@@ -62,7 +69,8 @@ def build_all() -> dict:
     ptxas text (registers, shared memory, spills) is kept in a log file
     beside each library, so it is also there for a cached build."""
     sources = _sources()
-    out_dir = _build_dir(sources)
+    out_dir = _build_dir(NVCC_FLAGS, sources + sorted(
+        glob.glob(os.path.join(CSRC_DIR, "*.cuh"))))
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
     for src in sources:
@@ -95,6 +103,32 @@ def build_all() -> dict:
         with open(so + ".ptxas.txt") as f:
             result[name] = {"so": so, "ptxas": f.read()}
     return result
+
+
+def build_native() -> str:
+    """Compile ``native/*.cpp`` into ``librufus_torch_io.so`` with the host
+    compiler (``$CXX``, else g++), unless it is built; returns its path."""
+    sources = sorted(glob.glob(os.path.join(NATIVE_DIR, "*.cpp")))
+    out_dir = _build_dir(HOST_FLAGS + HOST_LIBS, sources)
+    so = os.path.join(out_dir, "librufus_torch_io.so")
+    with _lock:
+        if os.path.exists(so):
+            return so
+        os.makedirs(out_dir, exist_ok=True)
+        cxx = os.environ.get("CXX") or shutil.which("g++")
+        if not cxx:
+            raise RuntimeError("no C++ compiler: the native decoders need g++ "
+                               "(or $CXX) and zlib")
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        p = subprocess.run([cxx, *HOST_FLAGS, *sources, "-o", tmp, *HOST_LIBS],
+                           capture_output=True, text=True)
+        if p.returncode != 0:
+            os.remove(tmp)
+            raise RuntimeError(f"building librufus_torch_io.so failed:\n"
+                               f"{p.stdout}{p.stderr}")
+        os.replace(tmp, so)
+    return so
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,22 +1,23 @@
-"""CLI: python -m rufus_tpu_torch.pipeline -s child.R1.fastq,child.R2.fastq
--c mom.R1.fastq,mom.R2.fastq -c dad.R1.fastq,dad.R2.fastq
--q1 child.R1.fastq -q2 child.R2.fastq --stop-after filter
+"""CLI: python -m rufus_tpu_torch.pipeline -s child.bam -c mom.bam
+-c dad.bam --stop-after filter
 
 The JAX package's flag surface (runRufus.sh:74-131), plus --device. This
-slice runs through --stop-after filter on FASTQ input. The flags that only
-the stages after the filter (or BAM decoding) read are accepted by the
-parser and refused when set, since nothing here would honour them.
+slice runs through --stop-after filter on BAM, CRAM or FASTQ input (FASTQ
+pairs comma-separated, with -q1/-q2 for the filter). The flags that only
+the stages after the filter read are accepted by the parser and refused
+when set, since nothing here would honour them; -r is read only to decode
+CRAM, and refused when no input is a CRAM.
 """
 
 import argparse
 
 from .config import RufusConfig
-from .driver import RufusPipeline, _not_ported
+from .driver import RufusPipeline, _not_ported, input_kind
 
 # flags read only by stages this slice does not run -> ROADMAP.md entry
+# (-r is also read to decode CRAM inputs)
 LATER_FLAGS = {
     "ref": "align, assemble, interpret, polish",
-    "threads": "BAM/BGZF/CRAM input",
     "maxAllele": "align, assemble, interpret, polish",
     "mob": "align, assemble, interpret, polish",
     "refhash": "align, assemble, interpret, polish",
@@ -34,13 +35,15 @@ def main():
     p = argparse.ArgumentParser(
         prog="rufus_tpu_torch",
         description="reference-free variant caller on a CUDA device")
-    p.add_argument("-s", "--subject", required=True, help="subject FASTQ(s)")
+    p.add_argument("-s", "--subject", required=True,
+                   help="subject BAM/CRAM/FASTQ(s), comma-separated")
     p.add_argument("-c", "--controls", action="append", default=[],
-                   help="control FASTQ(s) (repeatable)")
+                   help="control BAM/CRAM/FASTQ(s) (repeatable)")
     p.add_argument("-r", "--ref", default="",
                    help="reference fasta (or BWA index prefix)")
     p.add_argument("-k", type=int, default=25, help="k-mer size (<=31)")
-    p.add_argument("-t", "--threads", type=int, default=2)
+    p.add_argument("-t", "--threads", type=int, default=2,
+                   help="BAM inflate threads")
     p.add_argument("-m", "--min", type=int, default=None,
                    help="fixed MutantMinCov override")
     p.add_argument("-fq", "--filterMinQ", type=int, default=15)
@@ -81,14 +84,19 @@ def main():
                    help="torch device (default cuda; cpu runs the kernels' "
                         "plain PyTorch versions)")
     a = p.parse_args()
+    crams = any(input_kind(part) == "cram" for path in [a.subject] + a.controls
+                for part in path.split(","))
     for dest, entry in LATER_FLAGS.items():
+        if dest == "ref" and crams:
+            continue
         if getattr(a, dest) != p.get_default(dest):
             _not_ported(f"--{dest}", entry)
     min_cov = a.min
     if a.tumor and min_cov is None:
         min_cov = 5  # RunRUFUS.Tumor.sh fixed cutoff
     cfg = RufusConfig(
-        subject=a.subject, controls=a.controls, k=a.k, workdir=a.workdir,
+        subject=a.subject, controls=a.controls, ref=a.ref, k=a.k,
+        threads=a.threads, workdir=a.workdir,
         min_cov=min_cov, filter_min_q=a.filterMinQ,
         filter_k_threshold=a.filterK, par_low_k=a.parLowK,
         exclude_hash=a.exclude, fastq_a=a.fastqA, fastq_b=a.fastqB,

@@ -2,9 +2,9 @@
 reference: runRufus.sh:135-366 with defaults at 27, 61-69, 424-435).
 
 The fields are those of the JAX package that the stages through the filter
-read, plus `device`. `count_passes`, `spill_tables`, `sharded` and
-`single_end` stay so a JAX configuration's values can be passed on; the
-driver refuses any value of theirs that it cannot honour."""
+read, plus `device`. `count_passes`, `spill_tables` and `sharded` stay so
+a JAX configuration's values can be passed on; the driver refuses any
+value of theirs that it cannot honour."""
 
 from __future__ import annotations
 
@@ -14,9 +14,12 @@ from dataclasses import dataclass, field
 
 @dataclass
 class RufusConfig:
-    subject: str = ""  # subject FASTQ(s), comma-separated
+    subject: str = ""  # subject BAM/CRAM/FASTQ(s), comma-separated
     controls: list = field(default_factory=list)
+    ref: str = ""  # reference FASTA (or BWA index prefix): CRAM decoding
     k: int = 25
+    threads: int = 2  # native BAM inflate threads (the pair and single-end
+    # streams use at least 2)
     workdir: str = "."
     min_cov: int | None = None  # -m fixed MutantMinCov override
     filter_min_q: int = 15  # -fq
@@ -25,7 +28,7 @@ class RufusConfig:
     subject_low_k: int = 2
     max_hash_depth_seed: int = 1200  # runRufus.sh:27
     exome: bool = False
-    single_end: bool = False  # refused: BAM/BGZF/CRAM input
+    single_end: bool = False  # filter single reads of a BAM/CRAM subject
     fastq_a: str = ""
     fastq_b: str = ""
     exclude_hash: str = ""  # -e exclude Jhash table

@@ -346,3 +346,56 @@ def test_slice_on_card_equals_slice_on_cpu(tmp_path):
                 np.testing.assert_array_equal(za[key], zb[key])
         else:
             assert a == b, n
+
+
+@pytest.mark.parametrize("single_end", [False, True])
+def test_bam_slice_on_card_equals_slice_on_cpu(tmp_path, single_end):
+    """The trio from BAMs through the filter (the stranded pair stream, or
+    single-end reads), on the card and on the CPU."""
+    _card()
+    data = synthetic.write_trio(str(tmp_path / "fastq"), genome_bp=20_000,
+                                coverage=30, n_denovo=4, seed=3)
+    bams = synthetic.write_trio_bams(data, str(tmp_path / "bam"), seed=3)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        wd = tmp_path / device
+        RufusPipeline(RufusConfig(
+            subject=bams["child"], controls=[bams["mother"], bams["father"]],
+            k=25, workdir=str(wd), exome=True, min_cov=5,
+            stop_after="filter", single_end=single_end, batch_size=1024,
+            device=device)).run()
+        outs[device] = wd
+    names = sorted(n for n in os.listdir(outs["cpu"])
+                   if os.path.isfile(outs["cpu"] / n))
+    assert any(n.endswith(".Mutations.fastq" if single_end
+                          else ".Mutations.Mate1.fastq") for n in names)
+    assert names == sorted(n for n in os.listdir(outs["cuda"])
+                           if os.path.isfile(outs["cuda"] / n))
+    for n in names:
+        if n.endswith(".npz"):
+            za, zb = np.load(outs["cuda"] / n), np.load(outs["cpu"] / n)
+            for key in zb.files:
+                np.testing.assert_array_equal(za[key], zb[key])
+        else:
+            assert (outs["cuda"] / n).read_bytes() == \
+                (outs["cpu"] / n).read_bytes(), n
+
+
+def test_native_decoder_builds_and_loads(tmp_path):
+    """The host decoders build from the package's sources on the card's
+    machine and decode a BAM as the Python reader does."""
+    _card()
+    from rufus_tpu_torch.io import bam, native
+    from rufus_tpu_torch.ops import _build
+
+    so = _build.build_native()
+    assert os.path.exists(so) and so.startswith(_build.BUILD_ROOT)
+    data = synthetic.write_trio(str(tmp_path / "fastq"), genome_bp=5_000,
+                                coverage=10, n_denovo=2, seed=4)
+    path = synthetic.write_trio_bams(data, str(tmp_path / "bam"))["father"]
+    with native.NativeBam(path) as nb:
+        names, s1, q1, l1, s2, q2, l2 = nb.read_pair_batch(10_000, 160)
+    want = list(bam.bam_to_paired_fastq(path))
+    assert list(names) == [w[0] for w in want]
+    assert [s1[i, :l1[i]].tobytes().decode() for i in range(len(names))] == \
+        [w[1] for w in want]

@@ -1,5 +1,6 @@
 """rufus_tpu_torch stands alone: no JAX, nothing of rufus_tpu."""
 
+import json
 import os
 import pkgutil
 import subprocess
@@ -45,3 +46,27 @@ def test_chip_smoke_imports_nothing_of_jax():
         if s.startswith(("import ", "from ")):
             mod = s.split()[1].split(".")[0]
             assert mod not in ("jax", "rufus_tpu"), s
+
+
+_DECODER_PROBE = r"""
+import json
+from rufus_tpu_torch.io import native
+native._lib()
+maps = open("/proc/self/maps").read()
+print(json.dumps(sorted({l.split()[-1] for l in maps.splitlines()
+                         if "rufus" in l and l.endswith(".so")})))
+"""
+
+
+def test_port_loads_its_own_decoder():
+    """The port's decoders are built from its own sources into build/, and
+    the JAX package's native/librufus_native.so is never loaded."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _DECODER_PROBE], env=env,
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    libs = json.loads(out.stdout.strip())
+    assert len(libs) == 1, libs
+    assert libs[0].startswith(os.path.join(REPO, "build", "rufus_tpu_torch"))
+    assert not libs[0].endswith(os.path.join("native", "librufus_native.so"))

@@ -93,14 +93,17 @@ def test_slice_is_batch_size_independent(trio, jax_run, tmp_path):
 def test_unported_options_raise(trio, tmp_path):
     d, data = trio
     for over in ({"stop_after": ""}, {"count_passes": 2},
-                 {"spill_tables": "on"}, {"subject": "child.bam"},
-                 {"single_end": True}, {"fastq_a": ""}, {"sharded": "on"}):
+                 {"spill_tables": "on"},
+                 {"subject": "child.bam", "count_passes": 2},
+                 {"single_end": True, "sharded": "on"}, {"sharded": "on"}):
         cfg = RufusConfig(**_kwargs(data, tmp_path, device="cpu", **over))
         with pytest.raises(NotImplementedError):
             RufusPipeline(cfg).run()
-    with pytest.raises(ValueError):
-        RufusPipeline(RufusConfig(**_kwargs(data, tmp_path, device="cpu",
-                                            k=32))).run()
+    # a filter with neither -q1/-q2 nor a BAM/CRAM subject has no pairs
+    for over in ({"k": 32}, {"fastq_a": ""}):
+        with pytest.raises(ValueError):
+            RufusPipeline(RufusConfig(**_kwargs(data, tmp_path, device="cpu",
+                                                **over))).run()
 
 
 def _cli_argv(data, workdir, *extra):
@@ -121,7 +124,7 @@ def test_cli_runs_through_the_hashlist(trio, jax_run, tmp_path, monkeypatch):
     assert (tmp_path / hl).read_bytes() == (jax_run / hl).read_bytes()
 
 
-@pytest.mark.parametrize("flag", [["-r", "ref.fa"], ["-t", "8"], ["-L", "50"],
+@pytest.mark.parametrize("flag", [["-r", "ref.fa"], ["--saliva"], ["-L", "50"],
                                   ["--mosaic"], ["--clean"], ["--pacbio"]])
 def test_cli_refuses_later_stage_flags(trio, tmp_path, monkeypatch, flag):
     """Flags that only unported stages read are refused, not ignored."""
