@@ -14,15 +14,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
 3. data    - writes a synthetic trio from --seed as paired FASTQ: a random
              genome of --genome-mbp Mbp, 30x of 150 bp pairs per sample
              (0.2% substitution errors, 2% low-quality bases), the child
-             with 100 de novo SNVs at VAF 0.5;
+             with 100 de novo SNVs at VAF 0.5; and the genome as the
+             reference FASTA;
 4. slice   - runs the port's pipeline from the FASTQ files (the native
              decoders; RufusPipeline, batch_size 65536,
-             read_pad 160, k 25, the default ModelDist fit) through the
-             filter with every kernel launch count set to 0 first; prints
-             per-stage seconds (the model fit on its own line), unique
-             k-mers, HashList size, kept pairs, peak device memory and the
-             launches; checks every kernel launched and that kept pairs
-             span >= 95 of the 100 spiked sites;
+             read_pad 160, k 25, the default ModelDist fit) through
+             contig alignment (stop_after "contig_align": read alignment,
+             assembly, contig alignment and the genotype pulls) with every
+             kernel launch count set to 0 first; prints per-stage seconds
+             (the model fit on its own line), unique k-mers, HashList
+             size, kept pairs, peak device memory and the launches, then
+             one line for each of align_reads, assemble and contig_align
+             (wall s, device peak, reads aligned and mapped, duplicate
+             pairs, contigs, contig alignments and splits, k-mers pulled
+             from each sample's table, the batched DP calls and sw_batch
+             launches) and one with how many spiked sites lie inside a
+             mapped contig's primary alignment (recall, not a gate);
+             checks every kernel launched, that kept pairs span >= 95 of
+             the 100 spiked sites, and that contigs were aligned;
 5. bam     - the same trio as coordinate-sorted aligned BAMs
              (synthetic.write_trio_bams: the FASTQ reads at their true
              positions, 0.5% of pairs unmapped, 0.1% extra secondary,
@@ -64,11 +73,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
              compact_runs, window_hits and partition: compact_runs reads
              the unique count on the host in the middle of a call, so its
              ms includes the host's gaps (library_device_us is the same for
-             torch.unique_consecutive). The fold's two sorts
+             torch.unique_consecutive). sw_batch runs at the read path's
+             main shape (256 pairs, n 160, m 288: a 150 bp read and its
+             window, rounded to 32) and at the (B, n, m) of the contig
+             stage's largest DP call (n the longest contig rounded up to
+             32, m = n + 128), on random codes from --seed
+             with 2% N, every other window holding its query; its row
+             gives the kernel's ms and device_us, h_copy_ms (H to the
+             host, which the traceback reads) and its bound, 4 bytes of H
+             a cell written and the codes read. Before it a pulls line
+             times the contig stage's genotype pulls (every k-mer of its
+             two tabs against the three sample tables on the card, one
+             torch.searchsorted a table) beside the host numpy query they
+             must equal. The fold's two sorts
              are timed too: torch.sort of the pending buffer and the stable
              sort of a merge. A slice_busy line then reckons the card's busy
              time in the count and filter stages, launches x ms of the
-             kernels and sorts, beside each stage's wall time.
+             kernels and sorts, and in align_reads and contig_align, every
+             DP call's (B, n, m) from the trace replayed and timed with its
+             H copy, beside each stage's wall time.
 7. radix   - the radix tool's path (python -m rufus_tpu_torch.tools.radixbench
              at its default n, 25,993,216 random k 25 keys, with the
              partition and run-metadata counts set to 0 first), which prints
@@ -201,6 +224,10 @@ def phase_data(out_dir, genome_mbp, seed):
     t0 = time.perf_counter()
     data = synthetic.write_trio(out_dir, genome_bp=int(genome_mbp * 1e6),
                                 coverage=30, n_denovo=100, seed=seed)
+    data["ref"] = os.path.join(out_dir, "ref.fa")
+    with open(data["ref"], "wb") as fh:
+        fh.write(b">" + synthetic.REF_NAME.encode() + b"\n"
+                 + data["genome"].tobytes() + b"\n")
     emit({"phase": "data", "seconds": time.perf_counter() - t0,
           "genome_bp": int(genome_mbp * 1e6), "pairs_per_sample":
           data["pairs"], "fastq_bytes": sum(
@@ -210,6 +237,7 @@ def phase_data(out_dir, genome_mbp, seed):
 
 
 def _kernels():
+    """The kernels of the path through the filter."""
     from rufus_tpu_torch.ops import cuda_count, cuda_filter, cuda_fold
 
     return {"encode_canon": cuda_count.encode_canon,
@@ -217,26 +245,62 @@ def _kernels():
             "window_hits": cuda_filter.window_hits}
 
 
+def _sam_intervals(path):
+    """[start, end) reference intervals (0-based) of a SAM's mapped
+    primary records."""
+    import re
+
+    out = []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("@"):
+                continue
+            fl = line.split("\t")
+            if int(fl[1]) & 0x904:
+                continue
+            span = sum(int(n) for n, op in re.findall(r"(\d+)([MDN=X])",
+                                                      fl[5]))
+            out.append((int(fl[3]) - 1, int(fl[3]) - 1 + span))
+    return out
+
+
 def phase_slice(data, workdir):
     from rufus_tpu_torch import synthetic
     from rufus_tpu_torch.pipeline import RufusConfig, RufusPipeline
 
+    from rufus_tpu_torch.ops import cuda_sw
+
     c, m, f = data["child"], data["mother"], data["father"]
     cfg = RufusConfig(subject=",".join(c), controls=[",".join(m), ",".join(f)],
                       k=K, batch_size=BATCH, read_pad=READ_PAD,
-                      workdir=workdir, stop_after="filter", fastq_a=c[0],
-                      fastq_b=c[1], device="cuda")
+                      workdir=workdir, stop_after="contig_align",
+                      fastq_a=c[0], fastq_b=c[1], ref=data["ref"],
+                      device="cuda")
     pipe = RufusPipeline(cfg)
-    kernels = _kernels()
+    kernels = dict(_kernels(), sw_batch=cuda_sw.sw_batch)
     for fn in kernels.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    m1 = pipe.run()
+    inputs = pipe.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
     stages = {s["stage"]: s for s in pipe.trace.stages}
     emit({"phase": "model", "seconds": stages["model"]["wall_s"]})
+    keys = ("wall_s", "device_peak_bytes", "reads", "mapped",
+            "duplicate_pairs", "contigs", "alignments", "splits", "pulled",
+            "found", "dp")
+    for name in ("align_reads", "assemble", "contig_align"):
+        emit({"phase": name, **{k: stages[name][k] for k in keys
+                                if k in stages[name]}})
+    m1 = cfg.wpath(cfg.subject_stub + ".Mutations.Mate1.fastq")
+    contig_sam = cfg.wpath(cfg.name_stub + ".overlap.hashcount.fastq.sam")
+    spans = _sam_intervals(contig_sam)
+    in_contig = sum(any(a <= s < b for a, b in spans) for s in data["sites"])
+    emit({"phase": "contig_recall", "sites_in_contigs": int(in_contig),
+          "sites": int(len(data["sites"])),
+          "primary_alignments": len(spans),
+          "sam_lines": len(inputs["stdin_lines"])})
     count_reads = sum(stages["count"]["reads"].values())
     with open(m1) as fh:
         kept = sum(1 for _ in fh) // 4
@@ -253,6 +317,10 @@ def phase_slice(data, workdir):
             "max_memory_allocated": max(s.get("device_peak_bytes", 0)
                                         for s in stages.values()),
             "launches": launches,
+            "contigs": stages["assemble"]["contigs"],
+            "contig_dp_largest": stages["contig_align"]["dp"]["largest"],
+            "dp_shapes": {n: stages[n]["dp"]["shapes"]
+                          for n in ("align_reads", "contig_align")},
             "folds": stages["count"]["folds"],
             "count_reads_per_s": count_reads / stages["count"]["wall_s"],
             "filter_pairs_per_s": (stages["filter"]["reads"]
@@ -268,6 +336,8 @@ def phase_slice(data, workdir):
     if len(spanned) < 95:
         raise AssertionError(f"kept pairs span {len(spanned)} of 100 spiked "
                              "sites (< 95)")
+    if not spans or not inputs["stdin_lines"]:
+        raise AssertionError("no contig was aligned")
     return info, os.path.join(workdir, hl)
 
 
@@ -503,7 +573,82 @@ def window_hits_row(r, q, l, table):
             lambda: cuda_filter.hashlist_index(table, K), 10)}
 
 
-def phase_kernels(data, hl_path, launches, seed):
+def sw_batch_row(B, n, m, seed):
+    """sw_batch on random codes (2% N, every other window holding its
+    query) at (B, n, m), both scorings held to the plain version; times,
+    bound, the H copy to the host and the kernel's device time."""
+    import numpy as np
+
+    from rufus_tpu_torch.ops import cuda_sw
+
+    g = np.random.default_rng(seed)
+    q = g.integers(0, 4, (B, n)).astype(np.uint8)
+    r = g.integers(0, 4, (B, m)).astype(np.uint8)
+    q[g.random((B, n)) < 0.02] = 255
+    r[g.random((B, m)) < 0.02] = 255
+    for b in range(0, B, 2):
+        at = int(g.integers(0, m - n + 1))
+        r[b, at:at + n] = q[b]
+    qt, rt = (torch.from_numpy(a).to("cuda") for a in (q, r))
+    err = 0
+    for sc in ((1, -4, 6, 1), (1, -4, 6, 0)):  # DEFAULT_ and MOB_SCORING
+        got = cuda_sw.sw_batch(qt, rt, *sc)
+        want = cuda_sw.sw_batch_torch(qt, rt, *sc)
+        err = max([err] + [max_abs_err(a, b) for a, b in zip(got, want)])
+    sc = (1, -4, 6, 1)
+    call = lambda: cuda_sw.sw_batch(qt, rt, *sc)  # noqa: E731
+    H, score = call()[:2]
+    nbytes = 4 * B * (n + 1) * (m + 1) + B * (n + m)
+    return {"max_abs_err": err, "ms": time_ms(call, 20),
+            "plain_ms": time_ms(lambda: cuda_sw.sw_batch_torch(qt, rt, *sc),
+                                2),
+            "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+            "library_ms": None, "shape": [B, n, m], "bytes": nbytes,
+            "h_copy_ms": time_ms(lambda: H.cpu(), 5),
+            "best_score_max": int(score.max()), "device_us": device_us(call)}
+
+
+def phase_pulls(workdir):
+    """The genotype pulls of the slice's contig stage (ops/query.py, one
+    torch.searchsorted a table) on its own tab k-mers against the three
+    sample tables reloaded to the card: held to the host KmerTable.query
+    and timed beside it."""
+    import numpy as np
+
+    from rufus_tpu_torch.convert import table_from_numpy
+    from rufus_tpu_torch.ops import codec, count
+    from rufus_tpu_torch.ops.query import query_counts
+
+    names = sorted(os.listdir(workdir))
+    hosts = [count.KmerTable.load(os.path.join(workdir, n))
+             for n in names if n.endswith(".table.npz")]
+    inter = os.path.join(workdir, "Intermediates")
+    strs = []
+    for n in sorted(os.listdir(inter)):
+        if n.endswith(".Jhash.tab"):
+            with open(os.path.join(inter, n)) as fh:
+                strs += [line.split()[0] for line in fh]
+    km = codec.strs_to_kmers([codec.canonical_str(s) for s in strs], K)
+    devs = [table_from_numpy(t.keys, t.counts, "cuda", k=K) for t in hosts]
+    got = query_counts(devs, km)
+    want = np.stack([t.query(km) for t in hosts])
+    t0 = time.perf_counter()
+    for t in hosts:
+        t.query(km)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    info = {"phase": "pulls", "kmers": len(km), "tables": len(hosts),
+            "table_keys": [len(t) for t in hosts],
+            "max_abs_err": int(np.abs(got - want).max()),
+            "found": [int(np.count_nonzero(c)) for c in got],
+            "ms": time_ms(lambda: query_counts(devs, km), 10),
+            "host_numpy_ms": host_ms}
+    emit(info)
+    if info["max_abs_err"] != 0:
+        raise AssertionError("the device pulls disagree with the host query")
+    return info
+
+
+def phase_kernels(data, hl_path, launches, seed, contig_shape):
     from rufus_tpu_torch.convert import hashlist_keys_to_int64
     from rufus_tpu_torch.io import fastq, hashlist as hio
     from rufus_tpu_torch.ops import cuda_count, cuda_fold
@@ -597,6 +742,19 @@ def phase_kernels(data, hl_path, launches, seed):
     row["large_table"] = big
     row["max_abs_err"] = max(row["max_abs_err"], big["max_abs_err"])
     rows.append(row)
+    del r, q, l, table, fb
+
+    # sw_batch: the read path's full batch, then the contig stage's
+    # largest DP call
+    row = {"name": "sw_batch", "route": "cuda",
+           "source": "rufus_tpu_torch/csrc/sw_batch.cu",
+           "replaces": "rufus_tpu/align/sw_device.py:37",
+           "launches": launches["sw_batch"],
+           **sw_batch_row(256, 160, 288, seed)}
+    row["contig"] = sw_batch_row(*contig_shape, seed + 1)
+    row["max_abs_err"] = max(row["max_abs_err"],
+                             row["contig"]["max_abs_err"])
+    rows.append(row)
     for row in rows:
         emit({"phase": "kernel", **share_of_bound(row)})
         if row["max_abs_err"] != 0:
@@ -605,11 +763,30 @@ def phase_kernels(data, hl_path, launches, seed):
     return rows
 
 
+def sw_busy(shapes) -> dict:
+    """sw_batch's kernel ms and its H copy's ms summed over a stage's DP
+    calls: each (B, n, m) the trace recorded is replayed on random codes
+    (the DP fills every cell whatever the codes) and timed, times its
+    number of calls."""
+    from rufus_tpu_torch.ops import cuda_sw
+
+    kernel = copy = 0.0
+    for B, n, m, calls in shapes:
+        q = torch.randint(0, 4, (B, n), dtype=torch.uint8, device="cuda")
+        r = torch.randint(0, 4, (B, m), dtype=torch.uint8, device="cuda")
+        call = lambda: cuda_sw.sw_batch(q, r, 1, -4, 6, 1)  # noqa: E731
+        H = call()[0]
+        kernel += calls * time_ms(call, 3)
+        copy += calls * time_ms(lambda: H.cpu(), 3)
+    return {"sw_batch_ms": kernel, "h_copy_ms": copy}
+
+
 def phase_slice_busy(sl, rows):
     """The card's busy time in the count and filter stages, reckoned as
     launches x ms of the kernels and of the fold's sorts as phase_kernels
     timed them (every fold sorts one pending buffer and compacts it raw;
-    every later fold also merge-sorts and compacts with counts), beside
+    every later fold also merge-sorts and compacts with counts), and in
+    the two alignment stages as their DP calls replayed (sw_busy), beside
     each stage's wall time."""
     by = {r["name"]: r for r in rows}
     enc, comp, win = by["encode_canon"], by["compact_runs"], by["window_hits"]
@@ -624,7 +801,9 @@ def phase_slice_busy(sl, rows):
           "count": {"busy_ms": count_ms,
                     "wall_s": sl["stage_wall_s"]["count"]},
           "filter": {"busy_ms": filter_ms,
-                     "wall_s": sl["stage_wall_s"]["filter"]}})
+                     "wall_s": sl["stage_wall_s"]["filter"]},
+          **{name: {**sw_busy(shapes), "wall_s": sl["stage_wall_s"][name]}
+             for name, shapes in sl["dp_shapes"].items()}})
 
 
 def phase_radix(data, work, seed):
@@ -700,7 +879,9 @@ def main():
                           args.seed)
         sl, hl_path = phase_slice(data, os.path.join(work, "run"))
         phase_bam(data, work, os.path.join(work, "run"), sl, args.seed)
-        rows = phase_kernels(data, hl_path, sl["launches"], args.seed)
+        phase_pulls(os.path.join(work, "run"))
+        rows = phase_kernels(data, hl_path, sl["launches"], args.seed,
+                             sl["contig_dp_largest"])
         phase_slice_busy(sl, rows)
         rows.append(phase_radix(data, work, args.seed))
     finally:

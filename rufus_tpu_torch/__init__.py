@@ -1,11 +1,13 @@
 """rufus_tpu_torch — the PyTorch/CUDA port of rufus_tpu.
 
 The JAX package (``rufus_tpu``) is the reference this port is held
-against; the port imports none of it. This slice covers the trio pipeline
-up to ``stop_after="filter"``: k-mer counting, the ModelDist depth fit,
-the subject-minus-controls subtract and the mutant-read filter, with the
-three Pallas kernels of that path rewritten as CUDA kernels
-(``csrc/*.cu``).
+against; the port imports none of it. It covers the trio pipeline up to
+``stop_after="contig_align"``: k-mer counting, the ModelDist depth fit,
+the subject-minus-controls subtract, the mutant-read filter, read
+alignment, assembly, and contig alignment with the genotype pulls, which
+return interpret's inputs. The three Pallas kernels of that path and the
+aligner's batched Smith-Waterman DP are CUDA kernels written for the H100
+(``csrc/*.cu``), as is the radix tool's partition.
 
 Design notes
 ------------

@@ -1,7 +1,9 @@
 """FASTQ text I/O and read batches for the device.
 
 ``read_fastq``, ``write_fastq`` and ``batch_reads`` are the reference's
-per-record helpers. ``fastq_batches`` / ``fastq_pair_batches`` parse whole
+per-record helpers; ``FastqdRecord``, ``read_fastqd`` and ``write_fastqd``
+its 6-line "FASTQ + depth" records (header, seq, '+', qual, strand string,
+per-base depth ints; OverlapSam.cpp:1066-1081), which assembly writes. ``fastq_batches`` / ``fastq_pair_batches`` parse whole
 byte chunks with numpy (newline search and one gather per field), so no
 per-read Python object is made, and yield fixed-size batches of
 'N'-padded uint8 rows: the plain versions of the native decoders
@@ -11,7 +13,7 @@ per-read Python object is made, and yield fixed-size batches of
 from __future__ import annotations
 
 import gzip
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -39,6 +41,39 @@ def write_fastq(path: str, records):
     with _open(path, "wt") as f:
         for name, seq, qual in records:
             f.write(f"@{name}\n{seq}\n+\n{qual}\n")
+
+
+@dataclass
+class FastqdRecord:
+    name: str  # without '@'
+    seq: str
+    qual: str
+    strands: str  # per-base strand chars
+    depths: list[int] = field(default_factory=list)
+
+
+def read_fastqd(path: str):
+    with _open(path) as f:
+        while True:
+            h = f.readline()
+            if not h:
+                return
+            seq = f.readline().rstrip("\n")
+            f.readline()
+            qual = f.readline().rstrip("\n")
+            strands = f.readline().rstrip("\n")
+            depth_line = f.readline().rstrip("\n")
+            depths = ([int(x) for x in depth_line.split()]
+                      if depth_line.strip() else [])
+            yield FastqdRecord(h.rstrip("\n")[1:], seq, qual, strands, depths)
+
+
+def write_fastqd(path: str, records):
+    with _open(path, "wt") as f:
+        for r in records:
+            f.write(f"@{r.name}\n{r.seq}\n+\n{r.qual}\n{r.strands}\n")
+            f.write(" ".join(str(d) for d in r.depths))
+            f.write("\n")
 
 
 def batch_reads(seqs, quals=None, pad_to: int | None = None, bucket: int = 32):

@@ -73,6 +73,25 @@ class KmerTable:
             ukeys, sums = ukeys[keep], sums[keep]
         return cls(k, ukeys, sums)
 
+    @classmethod
+    def from_strings(cls, k: int, seqs):
+        """Count the k-mers of host strings as read, not canonicalized
+        (uppercased; windows with a non-ACGT base skipped): the contig and
+        reference-context tabs of contig alignment."""
+        counts: dict[int, int] = {}
+        for s in seqs:
+            su = s.upper()
+            for i in range(len(su) - k + 1):
+                w = su[i : i + k]
+                if any(c not in "ACGT" for c in w):
+                    continue
+                v = codec.str_to_kmer(w)
+                counts[v] = counts.get(v, 0) + 1
+        items = sorted(counts.items())
+        keys = np.array([kv[0] for kv in items], dtype=np.uint64)
+        cnts = np.array([kv[1] for kv in items], dtype=np.int64)
+        return cls(k, keys, cnts)
+
     def query(self, kmers: np.ndarray) -> np.ndarray:
         """Batched point lookup of canonical uint64 k-mers -> counts (0 when
         absent); replaces `jellyfish query`."""

@@ -1,4 +1,5 @@
-"""The trio pipeline through the filter stage (runRufus.sh's front half)."""
+"""The trio pipeline through contig alignment (runRufus.sh and
+Overlap.shorter.sh up to RUFUS.interpret's inputs)."""
 
 from .config import RufusConfig  # noqa: F401
 from .driver import RufusPipeline  # noqa: F401

@@ -1,33 +1,25 @@
 """CLI: python -m rufus_tpu_torch.pipeline -s child.bam -c mom.bam
--c dad.bam --stop-after filter
+-c dad.bam -r ref.fa --stop-after contig_align
 
 The JAX package's flag surface (runRufus.sh:74-131), plus --device. This
-slice runs through --stop-after filter on BAM, CRAM or FASTQ input (FASTQ
-pairs comma-separated, with -q1/-q2 for the filter). The flags that only
-the stages after the filter read are accepted by the parser and refused
-when set, since nothing here would honour them; -r is read only to decode
-CRAM, and refused when no input is a CRAM.
+slice runs through --stop-after contig_align on BAM, CRAM or FASTQ input
+(FASTQ pairs comma-separated, with -q1/-q2 for the filter). The flags that
+only interpret, polish and the CLI's other paths read are accepted by the
+parser and refused when set, since nothing here would honour them.
 """
 
 import argparse
 
 from .config import RufusConfig
-from .driver import RufusPipeline, _not_ported, input_kind
+from .driver import STOP_STAGES, RufusPipeline, _not_ported
 
 # flags read only by stages this slice does not run -> ROADMAP.md entry
-# (-r is also read to decode CRAM inputs)
 LATER_FLAGS = {
-    "ref": "align, assemble, interpret, polish",
-    "maxAllele": "align, assemble, interpret, polish",
-    "mob": "align, assemble, interpret, polish",
-    "refhash": "align, assemble, interpret, polish",
-    "mosaic": "align, assemble, interpret, polish",
-    "speed": "align, assemble, interpret, polish",
-    "saliva": "align, assemble, interpret, polish",
-    "clean": "align, assemble, interpret, polish",
-    "flat_index": "align, assemble, interpret, polish",
-    "pacbio": "align, assemble, interpret, polish",
-    "regenotype": "align, assemble, interpret, polish",
+    "maxAllele": "interpret, polish",
+    "mosaic": "interpret, polish",
+    "clean": "interpret, polish",
+    "pacbio": "interpret, polish",
+    "regenotype": "interpret, polish",
 }
 
 
@@ -43,7 +35,7 @@ def main():
                    help="reference fasta (or BWA index prefix)")
     p.add_argument("-k", type=int, default=25, help="k-mer size (<=31)")
     p.add_argument("-t", "--threads", type=int, default=2,
-                   help="BAM inflate threads")
+                   help="BAM inflate threads; assembly buffers 100 per thread")
     p.add_argument("-m", "--min", type=int, default=None,
                    help="fixed MutantMinCov override")
     p.add_argument("-fq", "--filterMinQ", type=int, default=15)
@@ -64,7 +56,7 @@ def main():
     p.add_argument("--speed", default="full", choices=["full", "veryfast"])
     p.add_argument("--workdir", default=".")
     p.add_argument("--stop-after", default="",
-                   choices=["", "jhash", "hashlist", "filter"])
+                   choices=["", *STOP_STAGES])
     p.add_argument("--haploid", action="store_true",
                    help="ModelDist.haploid depth-model fit")
     p.add_argument("--saliva", action="store_true",
@@ -84,11 +76,7 @@ def main():
                    help="torch device (default cuda; cpu runs the kernels' "
                         "plain PyTorch versions)")
     a = p.parse_args()
-    crams = any(input_kind(part) == "cram" for path in [a.subject] + a.controls
-                for part in path.split(","))
     for dest, entry in LATER_FLAGS.items():
-        if dest == "ref" and crams:
-            continue
         if getattr(a, dest) != p.get_default(dest):
             _not_ported(f"--{dest}", entry)
     min_cov = a.min
@@ -100,10 +88,16 @@ def main():
         min_cov=min_cov, filter_min_q=a.filterMinQ,
         filter_k_threshold=a.filterK, par_low_k=a.parLowK,
         exclude_hash=a.exclude, fastq_a=a.fastqA, fastq_b=a.fastqB,
-        exome=a.exome, single_end=a.single_end, stop_after=a.stop_after,
-        haploid=a.haploid, sharded=a.sharded, device=a.device,
+        mob_fasta=a.mob, ref_hash=a.refhash, exome=a.exome,
+        single_end=a.single_end, assembly_speed=a.speed,
+        stop_after=a.stop_after, haploid=a.haploid, saliva=a.saliva,
+        sharded=a.sharded, flat_index=a.flat_index, device=a.device,
     )
-    print(RufusPipeline(cfg).run())
+    out = RufusPipeline(cfg).run()
+    if isinstance(out, dict):  # contig_align: interpret's inputs
+        out = {k: (len(v) if k == "stdin_lines" else v)
+               for k, v in out.items()}
+    print(out)
 
 
 if __name__ == "__main__":

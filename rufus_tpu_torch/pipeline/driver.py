@@ -1,5 +1,7 @@
-"""The RUFUS trio pipeline on one CUDA device, through the filter stage:
-count -> model -> subtract -> filter (runRufus.sh's front half).
+"""The RUFUS trio pipeline on one CUDA device, through contig alignment:
+count -> model -> subtract -> filter -> align reads -> assemble -> align
+contigs and pull genotype counts (runRufus.sh and Overlap.shorter.sh up to
+RUFUS.interpret's inputs).
 
 Every stage writes its outputs into the workdir under the reference's file
 names and is skipped when they already exist (runRufus.sh:844-951 resume
@@ -13,9 +15,12 @@ counting to the subtract. The filter takes pairs from -q1/-q2 FASTQ or
 from the subject BAM/CRAM (the stranded pair stream), or single-end reads
 from the subject.
 
-Stages after the filter (align, assemble, interpret, polish), the memory
-model and multi-GPU are not ported yet: ``run`` refuses them and names the
-ROADMAP.md entry that will bring each.
+Read and contig alignment run the seed-and-extend aligner (``align/``)
+with every batched candidate DP on the device (the ``sw_batch`` CUDA
+kernel); assembly is host Python (``assembly/``); the genotype pulls search
+the resident sample tables on the device (``ops/query.py``). Interpret and
+polish, the memory model and multi-GPU are not ported yet: ``run`` refuses
+them and names the ROADMAP.md entry that will bring each.
 """
 
 from __future__ import annotations
@@ -24,11 +29,18 @@ import collections
 import os
 import queue
 import threading
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from .config import RufusConfig
+from ..align import Aligner, RefIndex
+from ..align import sam as rsam
+from ..align.aligner import MOB_SCORING, build_flat_index, open_flat_index
+from ..assembly import annotate
+from ..assembly.overlap_rounds import overlap_region, overlap_round
+from ..assembly.overlap_sam import overlap_sam
 from ..convert import hashlist_keys_to_int64, table_from_numpy
 from ..io import (bwaindex, cram, fasta, fastq, hashlist as hio, native,
                   progress)
@@ -36,14 +48,36 @@ from ..models import modeldist
 from ..ops import codec, count
 from ..ops.cuda_filter import hashlist_index
 from ..ops.filter import filter_pairs, filter_single
+from ..ops.query import query_counts
 from ..ops.table import DeviceKmerTable, count_step, subtract_step
 from ..utils.trace import StageTimer, Throughput
 
 FASTQ_EXT = (".fastq", ".fq", ".fastq.gz", ".fq.gz")
-STOP_STAGES = ("jhash", "hashlist", "filter")
+STOP_STAGES = ("jhash", "hashlist", "filter", "contig_align")
 MAX_READ = 1024  # the filter cuts reads only beyond this length
 
 _RefId = collections.namedtuple("_RefId", "ref_id")
+
+
+@dataclass
+class SamLikeRec:
+    """The fields of a mutant-read SAM record that assembly reads."""
+
+    flag: int
+    seq: str
+    qual: str
+    tlen: int = 0
+
+
+def _dp_summary(batches) -> dict:
+    """The trace's record of an aligner's batched DP calls: how many, the
+    candidate pairs they held, the (B, n, m) of the one with the largest H
+    a pair, and every (B, n, m) with its number of calls."""
+    return {"calls": len(batches), "pairs": sum(b for b, _, _ in batches),
+            "largest": max(batches, key=lambda x: (x[1] * x[2], x[0]),
+                           default=None),
+            "shapes": [[*shape, c] for shape, c in
+                       sorted(collections.Counter(batches).items())]}
 
 
 def input_kind(path: str) -> str:
@@ -67,7 +101,7 @@ def resolve_device(name: str) -> torch.device:
 
 def _not_ported(what: str, entry: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
-                              f"'Still to port': {entry})")
+                              f"'Queue A': {entry})")
 
 
 class RufusPipeline:
@@ -76,6 +110,7 @@ class RufusPipeline:
         self.device = resolve_device(cfg.device)
         os.makedirs(cfg.workdir, exist_ok=True)
         os.makedirs(cfg.wpath("Intermediates"), exist_ok=True)
+        os.makedirs(cfg.wpath("TempOverlap"), exist_ok=True)
         self._log = print
         self.trace = StageTimer(log_path=cfg.wpath("Intermediates",
                                                    "trace.jsonl"),
@@ -84,6 +119,7 @@ class RufusPipeline:
         self._reads: dict = {}  # stub -> reads counted
         self._filter_reads = 0  # reads (pairs) the filter stage read
         self._ref_contigs = None
+        self._ref_index = None
 
     def check_supported(self):
         """Raise NotImplementedError for what this slice does not run, and
@@ -92,13 +128,16 @@ class RufusPipeline:
         codec.check_k(cfg.k)
         if cfg.stop_after not in STOP_STAGES:
             _not_ported(f"stop_after={cfg.stop_after!r} (the stages after "
-                        "the filter)", "align, assemble, interpret, polish")
+                        "contig alignment)", "interpret, polish")
         if cfg.count_passes > 1 or cfg.spill_tables == "on":
             _not_ported("count_passes > 1 / spill_tables='on'",
                         "memory model")
         if cfg.sharded == "on":
             _not_ported("sharded='on'", "multi-GPU")
-        if cfg.stop_after == "filter" and (
+        if cfg.stop_after == "contig_align" and not cfg.ref:
+            raise ValueError("read and contig alignment need a reference "
+                             "FASTA (ref, -r)")
+        if cfg.stop_after in ("filter", "contig_align") and (
                 cfg.single_end or not (cfg.fastq_a and cfg.fastq_b)) and (
                 "," in cfg.subject or input_kind(cfg.subject) == "fastq"):
             raise ValueError(
@@ -121,6 +160,32 @@ class RufusPipeline:
             else:
                 raise FileNotFoundError(f"reference not found: {path}")
         return self._ref_contigs
+
+    def ref_index(self):
+        """The aligner's seed index of cfg.ref: in memory, or the memmapped
+        flat index at cfg.flat_index, built there on first use."""
+        if self._ref_index is None:
+            path = self.cfg.flat_index
+            if path:
+                if not os.path.exists(path):
+                    self._log(f"building flat seed index {path} (one-time)")
+                    build_flat_index(self.ref_contigs(), path)
+                self._ref_index = open_flat_index(path)
+            else:
+                self._ref_index = RefIndex(self.ref_contigs())
+        return self._ref_index
+
+    def _device_tables(self, tables) -> list:
+        """Every sample's DeviceKmerTable, subject first: the resident ones,
+        and tables resumed from disk uploaded for the caller alone, so
+        they are freed when its stage drops them."""
+        cfg = self.cfg
+        stubs = [cfg.subject_stub] + [cfg.control_stub(c)
+                                      for c in cfg.controls]
+        hosts = [tables["subject"]] + list(tables["controls"])
+        return [self._dev_tables[s] if s in self._dev_tables
+                else table_from_numpy(t.keys, t.counts, self.device, k=cfg.k)
+                for s, t in zip(stubs, hosts)]
 
     # -- feeding ------------------------------------------------------------
 
@@ -327,15 +392,8 @@ class RufusPipeline:
         if os.path.exists(hl_path):
             self._log("skipping hashlist")
             return hl_path
-        stubs = [cfg.subject_stub] + [cfg.control_stub(c)
-                                      for c in cfg.controls]
-        hosts = [tables["subject"]] + tables["controls"]
         with self.trace.stage("hashlist", device=str(self.device)) as rec:
-            # tables resumed from disk go back to the device
-            devs = [self._dev_tables[s] if s in self._dev_tables
-                    else table_from_numpy(t.keys, t.counts, self.device,
-                                          k=cfg.k)
-                    for s, t in zip(stubs, hosts)]
+            devs = self._device_tables(tables)
             mut_d, subj_d = subtract_step(devs[0], devs[1:], cfg.merge_min,
                                           mutant_min_cov, max_hash_depth)
             mut = codec.keys_i64_to_u64(mut_d.cpu().numpy())
@@ -528,12 +586,278 @@ class RufusPipeline:
         self._log(f"filter kept {kept} reads (single-end)")
         return out_path
 
+    # -- stage 5: align mutant reads ---------------------------------------
+
+    def stage_align_reads(self, m1_path: str, m2_path: str | None,
+                          rec: dict | None = None):
+        """Align the kept reads (bwa mem | samblaster | samtools sort,
+        runRufus.sh:1000-1001): pairs through align_pairs and
+        mark_duplicates, single-end reads through align_seqs, every
+        candidate DP batched on the device. Writes the coordinate-sorted
+        Mutations.fastq.sam and the indexed .bam; with saliva, the full set
+        as .FULL.sam and only reads whose own and mate mapping exist in the
+        others (runRufus.sh:1062-1076). `rec` gathers counts for the trace."""
+        cfg = self.cfg
+        rec = {} if rec is None else rec
+        sam_path = cfg.wpath(cfg.subject_stub + ".Mutations.fastq.sam")
+        if os.path.exists(sam_path):
+            self._log("skipping read alignment")
+            return sam_path
+        al = Aligner(self.ref_index(), device=self.device)
+        if m2_path is None:  # single-end, batched device DP
+            alns = [g[0]
+                    for g in al.align_seqs(list(fastq.read_fastq(m1_path)))]
+        else:
+            pairs = [(n1, s1, qq1, s2, qq2)
+                     for (n1, s1, qq1), (_, s2, qq2)
+                     in zip(fastq.read_fastq(m1_path),
+                            fastq.read_fastq(m2_path))]
+            alns = rsam.align_pairs(al, pairs)
+            # samblaster's slot in the pipe: mark PCR duplicate pairs so
+            # assembly's duplicate rejection can fire
+            alns, n_dup = rsam.mark_duplicates(alns)
+            rec["duplicate_pairs"] = n_dup
+            if n_dup:
+                self._log(f"marked {n_dup} duplicate pairs")
+        alns = rsam.sort_alignments(alns)
+        rec["reads"] = len(alns)
+        rec["mapped"] = sum(not a.is_unmapped for a in alns)
+        rec["dp"] = _dp_summary(al.dp_batches)
+        if cfg.saliva:
+            # keep the full set, then drop records with the read or its
+            # mate unmapped (`samtools view -F 12`)
+            rsam.write_sam(sam_path[: -len(".sam")] + ".FULL.sam", alns,
+                           self.ref_index())
+            alns = [a for a in alns if not (a.flag & 0xC)]
+            if not alns:
+                raise RuntimeError("saliva filter removed every read")
+        rsam.write_sam(sam_path, alns, self.ref_index())
+        rsam.write_bam(cfg.wpath(cfg.subject_stub + ".Mutations.fastq.bam"),
+                       alns, self.ref_index())
+        return sam_path
+
+    # -- stage 6: assembly --------------------------------------------------
+
+    def stage_assemble(self, sam_path: str, hl_path: str,
+                       rec: dict | None = None):
+        """Greedy overlap assembly of the aligned mutant reads
+        (Overlap.shorter.sh:90-196): OverlapSam, three Overlap rounds and
+        OverlapRegion (or, with assembly_speed "veryfast", OverlapSam and
+        one round on the pairs with |TLEN| > 150), then the depth, FASTQ and
+        HashList-count annotations. Host code; the rounds' buffer is
+        100 * threads reads, as in the reference."""
+        cfg = self.cfg
+        rec = {} if rec is None else rec
+        ns = cfg.name_stub
+        out_path = cfg.wpath(ns + ".overlap.hashcount.fastq")
+        if os.path.exists(out_path):
+            self._log("skipping assembly")
+            return out_path
+        records = []
+        for line in open(sam_path):
+            if line.startswith("@"):
+                continue
+            f = line.rstrip("\n").split("\t")
+            records.append(SamLikeRec(int(f[1]), f[9], f[10], int(f[8])))
+        strs, cnts = hio.read_hashlist(hl_path)
+        threads = max(cfg.threads, 1)
+        if cfg.assembly_speed == "veryfast":
+            # long-insert pairs only (Overlap.shorter.sh:98, awk on $9);
+            # single-end records all carry TLEN 0 and are all kept
+            if any(r.flag & 0x1 for r in records):
+                records = [r for r in records if abs(r.tlen) > 150]
+            r0, _ = overlap_sam(records, strs, ns, 0.99, 25, 3, cfg.k)
+            r4, _ = overlap_round(r0, ns, 0.99, 75, 5, 15, 1, 1,
+                                  buffer_size=100 * threads)
+        else:
+            r0, _ = overlap_sam(records, strs, ns, 0.95, 20, 1, cfg.k)
+            r1, _ = overlap_round(r0, "20", 0.98, 100, 1, 20, 1, 0,
+                                  buffer_size=100 * threads)
+            r2, _ = overlap_round(r1, "20", 0.98, 75, 2, 20, 1, 1,
+                                  buffer_size=100 * threads)
+            r3, _ = overlap_round(r2, "20", 0.98, 50, 2, 20, 1, 1,
+                                  buffer_size=100 * threads)
+            r4, _ = overlap_region(r3, ns, 0.98, 50, 5, 1)
+        if not r4:
+            raise RuntimeError("assembly produced no contigs")
+        rec["contigs"] = len(r4)
+        rq = annotate.replace_qual_with_depth(r4)
+        fastq.write_fastqd(cfg.wpath(ns + ".overlap.fastqd"), rq)
+        fq = annotate.fastqd_to_fastq(rq)
+        with open(cfg.wpath(ns + ".overlap.fastq"), "w") as f:
+            for n, s, q in fq:
+                f.write(f"@{n}\n{s}\n+\n{q}\n")
+        ann, side = annotate.annotate_overlap(list(zip(strs, cnts)), fq, cfg.k)
+        with open(out_path, "w") as f:
+            for n, s, q in ann:
+                f.write(f"@{n}\n{s}\n+\n{q}\n")
+        with open(cfg.wpath("TempOverlap",
+                            ns + ".overlap.asembly.hash.fastq"), "w") as f:
+            for line in side:
+                f.write(line + "\n")
+        return out_path
+
+    # -- stage 7: contig alignment + genotype pulls ----------------------
+
+    def stage_contig_align(self, contigs_path: str, tables,
+                           rec: dict | None = None):
+        """Align the contigs with splits (bwa mem -Y's role,
+        Overlap.shorter.sh:209-303), write the contig SAM and the sorted,
+        indexed BAM, the MOB alignments (with cfg.mob_fasta), the +-100 bp
+        reference context, the contigs' and the context's k-mer tabs, and
+        each sample's counts of those k-mers (pulled from the device
+        tables) and the repeat-hash pull. Returns the inputs of interpret:
+        the SA-annotated SAM lines and the paths of the pulls."""
+        cfg = self.cfg
+        rec = {} if rec is None else rec
+        ns = cfg.name_stub
+        inter = lambda *p: cfg.wpath("Intermediates", *p)  # noqa: E731
+        al = Aligner(self.ref_index(), device=self.device)
+        recs = list(fastq.read_fastq(contigs_path))
+
+        # contig alignments with splits, candidate DPs batched on the device
+        alns = []
+        for group in al.align_seqs(recs, splits=True):
+            alns.extend(group)
+        alns = rsam.sort_alignments(alns)
+        rec["contigs"] = len(recs)
+        rec["alignments"] = len(alns)
+        rec["splits"] = sum(a.is_supplementary for a in alns)
+        rec["dp"] = _dp_summary(al.dp_batches)
+        stdin_lines = []
+        by_name: dict[str, list] = {}
+        for a in alns:
+            by_name.setdefault(a.qname, []).append(a)
+        for a in alns:
+            if "chrUn" in a.ref_name:
+                continue
+            others = [x for x in by_name[a.qname]
+                      if x is not a and not x.is_unmapped]
+            sa_tag = ""
+            if others and not a.is_unmapped:
+                entries = "".join(
+                    f"{o.ref_name},{o.pos + 1},{'-' if o.is_reverse else '+'},"
+                    f"{o.cigar_string()},{o.mapq},{o.nm};"
+                    for o in others)
+                sa_tag = f"\tSA:Z:{entries}"
+            n_sa = len(others) if sa_tag else 0
+            line = rsam.to_sam_line(
+                a, tags=f"NM:i:{a.nm}\tAS:i:{a.score}" + sa_tag)
+            f = line.split("\t")
+            f[0] = f"{f[0]}:SA={n_sa}"
+            stdin_lines.append("\t".join(f))
+        sam_out = cfg.wpath(ns + ".overlap.hashcount.fastq.sam")
+        rsam.write_sam(sam_out, alns, self.ref_index())
+        rsam.write_bam(cfg.wpath(ns + ".overlap.hashcount.fastq.bam"),
+                       alns, self.ref_index())
+
+        # MOB alignment: bwa mem -E 0,0 -O 6,6 -d 500 -w 500 -L 0,0
+        # (Overlap.shorter.sh:225), per contig on the host DP as in the
+        # JAX package
+        mob_sam = inter(ns + ".overlap.hashcount.fastq.MOB.sam")
+        with open(mob_sam, "w") as f:
+            f.write("@HD\tVN:1.6\tSO:coordinate\n")
+            if cfg.mob_fasta and os.path.exists(cfg.mob_fasta):
+                mob_ref = fasta.FastaReference(cfg.mob_fasta)
+                mob_idx = RefIndex({n: mob_ref.seqs[n]
+                                    for n in mob_ref.names})
+                mob_al = Aligner(mob_idx, scoring=MOB_SCORING,
+                                 device=self.device)
+                for n in mob_idx.names:
+                    f.write(f"@SQ\tSN:{n}\tLN:{mob_idx.lengths[n]}\n")
+                for n, s, q in recs:
+                    a = mob_al.align_seq(n, s, q)[0]
+                    f.write(rsam.to_sam_line(a, tags=f"AS:i:{a.score}")
+                            + "\n")
+
+        # reference context fasta (bamtobed +-100 -> getfasta)
+        contigs_ref = self.ref_contigs()
+        ref_ctx_path = inter(ns + ".overlap.asembly.hash.fastq.ref.fastq")
+        ref_seqs = []
+        with open(ref_ctx_path, "w") as f:
+            for a in alns:
+                if a.is_unmapped:
+                    continue
+                s = max(0, a.pos - 100)
+                e = a.pos + a.ref_span() + 100
+                seq = contigs_ref[a.ref_name][s:e].tobytes().decode()
+                f.write(f">{a.ref_name}:{s}-{e}\n{seq}\n")
+                ref_seqs.append(seq)
+
+        # k-mer tabs (non-canonical forward counts)
+        tab_alt = inter(ns + ".overlap.hashcount.fastq.Jhash.tab")
+        tab_ref = inter(ns + ".overlap.asembly.hash.fastq.ref.fastq.Jhash.tab")
+        t_alt = count.KmerTable.from_strings(cfg.k, [s for _, s, _ in recs])
+        t_ref = count.KmerTable.from_strings(cfg.k, ref_seqs)
+        for t, path in ((t_alt, tab_alt), (t_ref, tab_ref)):
+            with open(path, "w") as f:
+                for s, c in zip(codec.kmers_to_strs(t.keys, cfg.k), t.counts):
+                    f.write(f"{s} {c}\n")
+
+        # genotype pulls: each tab's k-mers canonicalized once and searched
+        # in every sample's device table (the reference backgrounds one
+        # `jellyfish query` a sample, Overlap.shorter.sh:265-303)
+        devs = self._device_tables(tables)
+        rec["pulled"] = 0  # k-mers looked up in every sample's table
+        rec["found"] = [0] * len(devs)  # of them, present in each sample
+
+        def write_pull(out, strs, cnts):
+            with open(out, "w") as f:
+                for s, c in zip(strs, cnts):
+                    if 0 <= c <= cfg.genotype_max_cov:
+                        f.write(f"{s} {c}\n")
+
+        def pull_all(tab_path, out_paths):
+            strs = [line.split()[0] for line in open(tab_path)]
+            km = codec.strs_to_kmers([codec.canonical_str(s) for s in strs],
+                                     cfg.k) if strs else []
+            cnts_all = query_counts(devs, km)
+            rec["pulled"] += len(strs)
+            for t, (out, cnts) in enumerate(zip(out_paths, cnts_all)):
+                rec["found"][t] += int(np.count_nonzero(cnts))
+                write_pull(out, strs, cnts)
+
+        subj_alt = inter(ns + ".overlap.asembly.hash.fastq.sample")
+        subj_ref = inter(ns + ".overlap.asembly.hash.fastq.Ref.sample")
+        par_alt_paths, par_ref_paths = [], []
+        for c in cfg.controls:
+            stub = cfg.control_stub(c)
+            par_alt_paths.append(
+                inter(f"{ns}.overlap.asembly.hash.fastq.{stub}.Jhash"))
+            par_ref_paths.append(
+                inter(f"{ns}.overlap.asembly.hash.fastq.Ref.{stub}.Jhash"))
+        pull_all(tab_alt, [subj_alt] + par_alt_paths)
+        pull_all(tab_ref, [subj_ref] + par_ref_paths)
+
+        # exclude / repeat reference hash: a host-table point pull
+        rep_ref = inter(ns + ".ref.RepRefHash")
+        if cfg.ref_hash and os.path.exists(cfg.ref_hash):
+            ex = count.KmerTable.load(cfg.ref_hash)
+            strs = [line.split()[0] for line in open(tab_alt)]
+            cnts = ex.query(codec.strs_to_kmers(
+                [codec.canonical_str(s) for s in strs], cfg.k)) if strs else []
+            write_pull(rep_ref, strs, cnts)
+        else:
+            open(rep_ref, "w").close()
+
+        return {
+            "stdin_lines": stdin_lines,
+            "mob_sam": mob_sam,
+            "subj_alt": subj_alt,
+            "subj_ref": subj_ref,
+            "par_alt": par_alt_paths,
+            "par_ref": par_ref_paths,
+            "rep_ref": rep_ref,
+        }
+
     # -- the slice ----------------------------------------------------------
 
-    def run(self) -> str:
-        """count -> model -> subtract -> filter, stopping after
-        cfg.stop_after. Returns "" (jhash), the HashList path (hashlist) or
-        the Mate1 (single_end: Mutations.fastq) path (filter)."""
+    def run(self):
+        """count -> model -> subtract -> filter -> align_reads -> assemble
+        -> contig_align, stopping after cfg.stop_after. Returns "" (jhash),
+        the HashList path (hashlist), the Mate1 (single_end:
+        Mutations.fastq) path (filter) or interpret's inputs, the dict of
+        stage_contig_align (contig_align)."""
         cfg = self.cfg
         self.check_supported()
         t = self.trace
@@ -549,9 +873,18 @@ class RufusPipeline:
             return hl_path
         with t.stage("filter", device=str(self.device)) as rec:
             if cfg.single_end:
-                m1 = self.stage_filter_single(hl_path)
+                m1, m2 = self.stage_filter_single(hl_path), None
             else:
-                m1, _m2 = self.stage_filter(hl_path)
+                m1, m2 = self.stage_filter(hl_path)
             rec["reads"] = self._filter_reads
+        if cfg.stop_after == "filter":
+            self._log(t.summary())
+            return m1
+        with t.stage("align_reads", device=str(self.device)) as rec:
+            sam_path = self.stage_align_reads(m1, m2, rec)
+        with t.stage("assemble") as rec:
+            contigs_path = self.stage_assemble(sam_path, hl_path, rec)
+        with t.stage("contig_align", device=str(self.device)) as rec:
+            inputs = self.stage_contig_align(contigs_path, tables, rec)
         self._log(t.summary())
-        return m1
+        return inputs

@@ -16,7 +16,7 @@ import torch
 
 from rufus_tpu_torch import synthetic
 from rufus_tpu_torch.ops import (codec, cuda_count, cuda_filter, cuda_fold,
-                                 cuda_partition)
+                                 cuda_partition, cuda_sw)
 from rufus_tpu_torch.pipeline import RufusConfig, RufusPipeline
 
 pytestmark = pytest.mark.gpu
@@ -399,3 +399,102 @@ def test_native_decoder_builds_and_loads(tmp_path):
     assert list(names) == [w[0] for w in want]
     assert [s1[i, :l1[i]].tobytes().decode() for i in range(len(names))] == \
         [w[1] for w in want]
+
+
+_SCORES = {"default": (1, -4, 6, 1), "mob": (1, -4, 6, 0)}
+
+
+def _sw_inputs(rng, B, n, m, fill):
+    """(B, n) queries and (B, m) windows of codes 0-3 / 255: random with 2%
+    N, every other window holding its query (so scores are large and
+    tie), or all N."""
+    q = rng.integers(0, 4, (B, n)).astype(np.uint8)
+    r = rng.integers(0, 4, (B, m)).astype(np.uint8)
+    q[rng.random((B, n)) < 0.02] = 255
+    r[rng.random((B, m)) < 0.02] = 255
+    if fill == "copies" and m >= n:
+        for b in range(0, B, 2):
+            for at in range(0, m - n + 1, max(n, 1) + 7):
+                r[b, at:at + n] = q[b]
+    if fill == "all_n":
+        q[:] = 255
+    if fill == "pad":
+        q[1::2, n // 2:] = 255
+    return q, r
+
+
+@pytest.mark.parametrize("scoring", ["default", "mob"])
+@pytest.mark.parametrize("B,n,m,fill", [
+    (256, 160, 288, "random"), (256, 160, 288, "copies"),
+    (64, 160, 288, "pad"), (8, 160, 288, "all_n"),
+    (33, 64, 1023, "copies"),   # one column a thread, 1024 threads
+    (17, 600, 1100, "copies"),  # two columns a thread, idle threads
+    (5, 900, 4000, "random"),   # four columns a thread
+    (4, 300, 6000, "copies"),   # rows past 48 KB of shared memory
+    (3, 40, 20000, "copies"),   # rows past shared memory: the workspace
+    (2, 0, 40, "random"),       # no query rows: H is row 0
+    (1, 1, 1, "random"),
+])
+def test_sw_batch_kernel(scoring, B, n, m, fill):
+    dev = _card()
+    rng = np.random.default_rng(B * 1000 + m)
+    q, r = _sw_inputs(rng, B, n, m, fill)
+    qt, rt = torch.from_numpy(q).to(dev), torch.from_numpy(r).to(dev)
+    before = cuda_sw.sw_batch.launches
+    got = cuda_sw.sw_batch(qt, rt, *_SCORES[scoring])
+    torch.cuda.synchronize()
+    assert cuda_sw.sw_batch.launches == before + 1
+    want = cuda_sw.sw_batch_torch(qt, rt, *_SCORES[scoring])
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+    if fill == "all_n":
+        assert not bool(got[0].any())
+        assert not bool(torch.stack(got[1:]).any())  # (0, 0, 0)
+
+
+@pytest.mark.parametrize("single_end", [False, True])
+def test_contig_slice_on_card_equals_slice_on_cpu(tmp_path, single_end):
+    """The trio through contig alignment (paired from FASTQ, single-end
+    from the child BAM) on the card and on the CPU: every file and the
+    returned SAM lines; the card run's candidate DPs go through the
+    kernel."""
+    _card()
+    data = synthetic.write_trio(str(tmp_path / "fastq"), genome_bp=20_000,
+                                coverage=30, n_denovo=4, seed=3)
+    ref = tmp_path / "ref.fa"
+    ref.write_text(f">{synthetic.REF_NAME}\n"
+                   + data["genome"].tobytes().decode() + "\n")
+    if single_end:
+        bams = synthetic.write_trio_bams(data, str(tmp_path / "bam"), seed=3)
+        kw = dict(subject=bams["child"],
+                  controls=[bams["mother"], bams["father"]], single_end=True)
+    else:
+        c, m, f = data["child"], data["mother"], data["father"]
+        kw = dict(subject=",".join(c), controls=[",".join(m), ",".join(f)],
+                  fastq_a=c[0], fastq_b=c[1])
+    outs, lines = {}, {}
+    for device in ("cuda", "cpu"):
+        wd = tmp_path / device
+        before = cuda_sw.sw_batch.launches
+        res = RufusPipeline(RufusConfig(
+            k=25, workdir=str(wd), exome=True, min_cov=5, ref=str(ref),
+            stop_after="contig_align", batch_size=1024, device=device,
+            **kw)).run()
+        launches = cuda_sw.sw_batch.launches - before
+        assert (launches > 0) == (device == "cuda")
+        outs[device], lines[device] = wd, res["stdin_lines"]
+    assert lines["cuda"] == lines["cpu"] and lines["cpu"]
+    names = sorted(os.path.relpath(os.path.join(r, n), outs["cpu"])
+                   for r, _, ns in os.walk(outs["cpu"]) for n in ns
+                   if n != "trace.jsonl")
+    assert names == sorted(os.path.relpath(os.path.join(r, n), outs["cuda"])
+                           for r, _, ns in os.walk(outs["cuda"]) for n in ns
+                           if n != "trace.jsonl")
+    for n in names:
+        if n.endswith(".npz"):
+            za, zb = np.load(outs["cuda"] / n), np.load(outs["cpu"] / n)
+            for key in zb.files:
+                np.testing.assert_array_equal(za[key], zb[key])
+        else:
+            assert (outs["cuda"] / n).read_bytes() == \
+                (outs["cpu"] / n).read_bytes(), n

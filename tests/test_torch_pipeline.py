@@ -92,6 +92,9 @@ def test_slice_is_batch_size_independent(trio, jax_run, tmp_path):
 
 def test_unported_options_raise(trio, tmp_path):
     d, data = trio
+    with pytest.raises(NotImplementedError, match="interpret, polish"):
+        RufusPipeline(RufusConfig(**_kwargs(data, tmp_path, device="cpu",
+                                            stop_after=""))).run()
     for over in ({"stop_after": ""}, {"count_passes": 2},
                  {"spill_tables": "on"},
                  {"subject": "child.bam", "count_passes": 2},
@@ -99,8 +102,9 @@ def test_unported_options_raise(trio, tmp_path):
         cfg = RufusConfig(**_kwargs(data, tmp_path, device="cpu", **over))
         with pytest.raises(NotImplementedError):
             RufusPipeline(cfg).run()
-    # a filter with neither -q1/-q2 nor a BAM/CRAM subject has no pairs
-    for over in ({"k": 32}, {"fastq_a": ""}):
+    # a filter with neither -q1/-q2 nor a BAM/CRAM subject has no pairs;
+    # alignment needs a reference
+    for over in ({"k": 32}, {"fastq_a": ""}, {"stop_after": "contig_align"}):
         with pytest.raises(ValueError):
             RufusPipeline(RufusConfig(**_kwargs(data, tmp_path, device="cpu",
                                                 **over))).run()
@@ -124,8 +128,8 @@ def test_cli_runs_through_the_hashlist(trio, jax_run, tmp_path, monkeypatch):
     assert (tmp_path / hl).read_bytes() == (jax_run / hl).read_bytes()
 
 
-@pytest.mark.parametrize("flag", [["-r", "ref.fa"], ["--saliva"], ["-L", "50"],
-                                  ["--mosaic"], ["--clean"], ["--pacbio"]])
+@pytest.mark.parametrize("flag", [["-L", "50"], ["--mosaic"], ["--clean"],
+                                  ["--pacbio"], ["--regenotype", "t.npz"]])
 def test_cli_refuses_later_stage_flags(trio, tmp_path, monkeypatch, flag):
     """Flags that only unported stages read are refused, not ignored."""
     from rufus_tpu_torch.pipeline.__main__ import main
@@ -196,3 +200,39 @@ def test_exclude_table_drops_its_kmers(trio, jax_run, tmp_path):
         data, tmp_path / "run", device="cpu", stop_after="hashlist",
         exclude_hash=str(tmp_path / "exclude.npz")))).run()
     np.testing.assert_array_equal(hio.hashlist_keys(out, K), keys[1::2])
+
+
+def _tree(wd):
+    """{relative path: bytes} of every file under wd, the trace aside."""
+    out = {}
+    for root, _, names in os.walk(wd):
+        for n in names:
+            if n != "trace.jsonl":
+                p = os.path.join(root, n)
+                out[os.path.relpath(p, wd)] = open(p, "rb").read()
+    return out
+
+
+@pytest.mark.parametrize("flag", [[], ["--saliva"]])
+def test_cli_runs_through_contig_align(trio, tmp_path, monkeypatch, flag):
+    """-r and --saliva are read by read alignment: through --stop-after
+    contig_align the CLI writes what the API does with the same options
+    (tests/test_torch_contig.py holds those to the JAX stages)."""
+    from rufus_tpu_torch.pipeline.__main__ import main
+
+    d, data = trio
+    ref = tmp_path / "ref.fa"
+    ref.write_text(f">{synthetic.REF_NAME}\n"
+                   + data["genome"].tobytes().decode() + "\n")
+    monkeypatch.setattr(sys, "argv", _cli_argv(
+        data, tmp_path / "cli", "--stop-after", "contig_align", "-r",
+        str(ref), "-q1", data["child"][0], "-q2", data["child"][1], *flag))
+    main()
+    want = RufusPipeline(RufusConfig(**_kwargs(
+        data, tmp_path / "api", device="cpu", stop_after="contig_align",
+        ref=str(ref), saliva=bool(flag)))).run()
+    got, api = _tree(tmp_path / "cli"), _tree(tmp_path / "api")
+    assert got == api
+    assert os.path.relpath(want["mob_sam"], tmp_path / "api") in got
+    full = [n for n in got if n.endswith(".FULL.sam")]
+    assert len(full) == (1 if flag else 0)
