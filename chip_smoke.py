@@ -27,11 +27,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
              one line for each of align_reads, assemble and contig_align
              (wall s, device peak, reads aligned and mapped, duplicate
              pairs, contigs, contig alignments and splits, k-mers pulled
-             from each sample's table, the batched DP calls and sw_batch
-             launches) and one with how many spiked sites lie inside a
-             mapped contig's primary alignment (recall, not a gate);
-             checks every kernel launched, that kept pairs span >= 95 of
-             the 100 spiked sites, and that contigs were aligned;
+             from each sample's table, and each sw launch's pairs, DP
+             cells, largest pair and bytes copied to the host) and one
+             with how many spiked sites lie inside a mapped contig's
+             primary alignment (recall, not a gate);
+             checks every kernel launched, that no call returned H (the
+             dense cuda_sw.sw_batch, the tests' view, launched 0 times),
+             that kept pairs span >= 95 of the 100 spiked sites, and that
+             contigs were aligned;
 5. bam     - the same trio as coordinate-sorted aligned BAMs
              (synthetic.write_trio_bams: the FASTQ reads at their true
              positions, 0.5% of pairs unmapped, 0.1% extra secondary,
@@ -73,15 +76,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
              compact_runs, window_hits and partition: compact_runs reads
              the unique count on the host in the middle of a call, so its
              ms includes the host's gaps (library_device_us is the same for
-             torch.unique_consecutive). sw_batch runs at the read path's
-             main shape (256 pairs, n 160, m 288: a 150 bp read and its
-             window, rounded to 32) and at the (B, n, m) of the contig
-             stage's largest DP call (n the longest contig rounded up to
-             32, m = n + 128), on random codes from --seed
-             with 2% N, every other window holding its query; its row
-             gives the kernel's ms and device_us, h_copy_ms (H to the
-             host, which the traceback reads) and its bound, 4 bytes of H
-             a cell written and the codes read. Before it a pulls line
+             torch.unique_consecutive). sw_batch (the fused DP and
+             traceback, cuda_sw.sw_ragged) runs at the old read shape
+             (256 pairs of n 160, m 288), at the contig stage's largest
+             pair and on the slice's own read-alignment launch (its
+             recorded (n, m), replayed), on random codes from --seed with
+             2% N, every other window holding its query, both scorings
+             held to the plain version; its rows give ms, device_us, the
+             plain ms, out_copy_ms (the per-pair results and ops that
+             cross to the host) and the bound: 15 integer operations a DP
+             cell over 64 INT32 lanes x 132 SMs x nvidia-smi's
+             clocks.max.sm, or the codes and results over 3.35 TB/s if
+             larger. Before it a pulls line
              times the contig stage's genotype pulls (every k-mer of its
              two tabs against the three sample tables on the card, one
              torch.searchsorted a table) beside the host numpy query they
@@ -90,8 +96,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              sort of a merge. A slice_busy line then reckons the card's busy
              time in the count and filter stages, launches x ms of the
              kernels and sorts, and in align_reads and contig_align, every
-             DP call's (B, n, m) from the trace replayed and timed with its
-             H copy, beside each stage's wall time.
+             sw launch the trace recorded replayed and timed with the copy
+             of its results, beside each stage's wall time.
 7. radix   - the radix tool's path (python -m rufus_tpu_torch.tools.radixbench
              at its default n, 25,993,216 random k 25 keys, with the
              partition and run-metadata counts set to 0 first), which prints
@@ -277,8 +283,8 @@ def phase_slice(data, workdir):
                       fastq_a=c[0], fastq_b=c[1], ref=data["ref"],
                       device="cuda")
     pipe = RufusPipeline(cfg)
-    kernels = dict(_kernels(), sw_batch=cuda_sw.sw_batch)
-    for fn in kernels.values():
+    kernels = dict(_kernels(), sw_batch=cuda_sw.sw_ragged)
+    for fn in (*kernels.values(), cuda_sw.sw_batch):
         fn.launches = 0
     t0 = time.perf_counter()
     inputs = pipe.run()
@@ -319,8 +325,8 @@ def phase_slice(data, workdir):
             "launches": launches,
             "contigs": stages["assemble"]["contigs"],
             "contig_dp_largest": stages["contig_align"]["dp"]["largest"],
-            "dp_shapes": {n: stages[n]["dp"]["shapes"]
-                          for n in ("align_reads", "contig_align")},
+            "dp_launches": {n: stages[n]["dp"]["launches"]
+                            for n in ("align_reads", "contig_align")},
             "folds": stages["count"]["folds"],
             "count_reads_per_s": count_reads / stages["count"]["wall_s"],
             "filter_pairs_per_s": (stages["filter"]["reads"]
@@ -329,6 +335,9 @@ def phase_slice(data, workdir):
     emit(info)
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
+    if cuda_sw.sw_batch.launches:
+        raise AssertionError("the slice called the dense sw_batch, whose H "
+                             "is the tests' view")
     if min(info["unique_kmers"].values()) <= 0 or info["n_mutant"] <= 0 \
             or kept <= 0 or info["max_memory_allocated"] <= 0:
         raise AssertionError("the slice produced an empty table, HashList "
@@ -573,39 +582,83 @@ def window_hits_row(r, q, l, table):
             lambda: cuda_filter.hashlist_index(table, K), 10)}
 
 
-def sw_batch_row(B, n, m, seed):
-    """sw_batch on random codes (2% N, every other window holding its
-    query) at (B, n, m), both scorings held to the plain version; times,
-    bound, the H copy to the host and the kernel's device time."""
+INT32_LANES_PER_SM, SMS = 64, 132  # H100 SXM, Hopper white paper
+SW_OPS_PER_CELL = 15  # csrc/sw_batch.cu's recurrence, counted in its note
+
+
+def int32_ops_per_s() -> float:
+    """The card's INT32 rate: 64 lanes an SM x 132 SMs x the SM clock that
+    nvidia-smi reports as clocks.max.sm."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()[0])
+    return INT32_LANES_PER_SM * SMS * mhz * 1e6
+
+
+def ragged_batch(shapes, seed):
+    """A ragged sw batch on the card, packed as sw_device.sw_align packs it
+    (largest n*m first): random codes from `seed` with 2% N, every other
+    window holding its query. shapes: (n, m) a pair. Returns (codes, qoff,
+    n, roff, m)."""
     import numpy as np
 
     from rufus_tpu_torch.ops import cuda_sw
 
     g = np.random.default_rng(seed)
-    q = g.integers(0, 4, (B, n)).astype(np.uint8)
-    r = g.integers(0, 4, (B, m)).astype(np.uint8)
-    q[g.random((B, n)) < 0.02] = 255
-    r[g.random((B, m)) < 0.02] = 255
-    for b in range(0, B, 2):
-        at = int(g.integers(0, m - n + 1))
-        r[b, at:at + n] = q[b]
-    qt, rt = (torch.from_numpy(a).to("cuda") for a in (q, r))
+    shapes = sorted(shapes, key=lambda s: -s[0] * s[1])
+    qs, rs = [], []
+    for p, (n, m) in enumerate(shapes):
+        q = g.integers(0, 4, n).astype(np.uint8)
+        r = g.integers(0, 4, m).astype(np.uint8)
+        q[g.random(n) < 0.02] = 255
+        r[g.random(m) < 0.02] = 255
+        if p % 2 == 0 and m >= n:
+            at = int(g.integers(0, m - n + 1))
+            r[at:at + n] = q
+        qs.append(q)
+        rs.append(r)
+    n = np.array([s[0] for s in shapes], np.int64)
+    m = np.array([s[1] for s in shapes], np.int64)
+    codes = torch.from_numpy(np.concatenate(qs + rs)).to("cuda")
+    return (codes, cuda_sw.offsets(n), n, int(n.sum()) + cuda_sw.offsets(m),
+            m)
+
+
+def sw_row(shapes, seed, int_rate, plain_iters=1):
+    """The fused DP and traceback (sw_ragged) on one ragged batch: both
+    scorings held to the plain version (every result field and op); the
+    call's ms, its kernel's device time, the plain version's ms, the copy
+    of what crosses to the host (out_copy_ms) and the bound: the larger of
+    15 integer operations a DP cell over the card's INT32 rate and the
+    codes read and results written over 3.35 TB/s (the traceback, O(n+m)
+    a pair, is left out)."""
+    from rufus_tpu_torch.ops import cuda_sw
+
+    codes, qoff, n, roff, m = ragged_batch(shapes, seed)
     err = 0
-    for sc in ((1, -4, 6, 1), (1, -4, 6, 0)):  # DEFAULT_ and MOB_SCORING
-        got = cuda_sw.sw_batch(qt, rt, *sc)
-        want = cuda_sw.sw_batch_torch(qt, rt, *sc)
-        err = max([err] + [max_abs_err(a, b) for a, b in zip(got, want)])
-    sc = (1, -4, 6, 1)
-    call = lambda: cuda_sw.sw_batch(qt, rt, *sc)  # noqa: E731
-    H, score = call()[:2]
-    nbytes = 4 * B * (n + 1) * (m + 1) + B * (n + m)
+    for sc, gmax in (((1, -4, 6, 1), 128), ((1, -4, 6, 0), 1000)):
+        got = cuda_sw.sw_ragged(codes, qoff, n, roff, m, *sc, gmax)
+        want = cuda_sw.sw_ragged_torch(codes, qoff, n, roff, m, *sc, gmax)
+        err = max(err, max_abs_err(got, want))
+    args = (codes, qoff, n, roff, m, 1, -4, 6, 1, 128)
+    call = lambda: cuda_sw.sw_ragged(*args)  # noqa: E731
+    out = call()
+    res = cuda_sw.unpack(out, len(n))[0]
+    cells = int((n * m).sum())
+    nbytes = int((n + m).sum()) + out.numel()
+    op_ms = SW_OPS_PER_CELL * cells / int_rate * 1e3
     return {"max_abs_err": err, "ms": time_ms(call, 20),
-            "plain_ms": time_ms(lambda: cuda_sw.sw_batch_torch(qt, rt, *sc),
-                                2),
-            "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
-            "library_ms": None, "shape": [B, n, m], "bytes": nbytes,
-            "h_copy_ms": time_ms(lambda: H.cpu(), 5),
-            "best_score_max": int(score.max()), "device_us": device_us(call)}
+            "plain_ms": time_ms(lambda: cuda_sw.sw_ragged_torch(*args),
+                                plain_iters),
+            "bound_ms": max(op_ms, bound_ms(nbytes)),
+            "bound_by": "operations" if op_ms >= bound_ms(nbytes) else "bytes",
+            "library_ms": None, "pairs": len(n), "cells": cells,
+            "largest": [int(n[0]), int(m[0])], "bytes": nbytes,
+            "ops_per_cell": SW_OPS_PER_CELL, "int32_ops_per_s": int_rate,
+            "op_bound_ms": op_ms, "out_copy_ms": time_ms(lambda: out.cpu(), 5),
+            "best_score_max": int(res[:, 0].max()),
+            "ops_max": int(res[:, 6].max()), "device_us": device_us(call)}
 
 
 def phase_pulls(workdir):
@@ -648,7 +701,8 @@ def phase_pulls(workdir):
     return info
 
 
-def phase_kernels(data, hl_path, launches, seed, contig_shape):
+def phase_kernels(data, hl_path, launches, seed, contig_pair,
+                  read_shapes):
     from rufus_tpu_torch.convert import hashlist_keys_to_int64
     from rufus_tpu_torch.io import fastq, hashlist as hio
     from rufus_tpu_torch.ops import cuda_count, cuda_fold
@@ -744,16 +798,18 @@ def phase_kernels(data, hl_path, launches, seed, contig_shape):
     rows.append(row)
     del r, q, l, table, fb
 
-    # sw_batch: the read path's full batch, then the contig stage's
-    # largest DP call
+    # sw_batch: the old read shape, the contig stage's largest pair and
+    # the slice's own read-alignment launch, replayed
+    rate = int32_ops_per_s()
     row = {"name": "sw_batch", "route": "cuda",
            "source": "rufus_tpu_torch/csrc/sw_batch.cu",
            "replaces": "rufus_tpu/align/sw_device.py:37",
            "launches": launches["sw_batch"],
-           **sw_batch_row(256, 160, 288, seed)}
-    row["contig"] = sw_batch_row(*contig_shape, seed + 1)
-    row["max_abs_err"] = max(row["max_abs_err"],
-                             row["contig"]["max_abs_err"])
+           **sw_row([(160, 288)] * 256, seed, rate, 2)}
+    row["contig"] = sw_row([tuple(contig_pair)], seed + 1, rate, 2)
+    row["slice_launch"] = sw_row(read_shapes, seed + 2, rate)
+    row["max_abs_err"] = max(row["max_abs_err"], row["contig"]["max_abs_err"],
+                             row["slice_launch"]["max_abs_err"])
     rows.append(row)
     for row in rows:
         emit({"phase": "kernel", **share_of_bound(row)})
@@ -763,22 +819,23 @@ def phase_kernels(data, hl_path, launches, seed, contig_shape):
     return rows
 
 
-def sw_busy(shapes) -> dict:
-    """sw_batch's kernel ms and its H copy's ms summed over a stage's DP
-    calls: each (B, n, m) the trace recorded is replayed on random codes
-    (the DP fills every cell whatever the codes) and timed, times its
-    number of calls."""
+def sw_busy(launches) -> dict:
+    """sw_batch's kernel ms and the ms of what crosses to the host, summed
+    over a stage's launches: each launch the trace recorded (its pairs'
+    (n, m)) is replayed on random codes (the DP fills every cell whatever
+    the codes; the walk's length follows them) and timed."""
     from rufus_tpu_torch.ops import cuda_sw
 
     kernel = copy = 0.0
-    for B, n, m, calls in shapes:
-        q = torch.randint(0, 4, (B, n), dtype=torch.uint8, device="cuda")
-        r = torch.randint(0, 4, (B, m), dtype=torch.uint8, device="cuda")
-        call = lambda: cuda_sw.sw_batch(q, r, 1, -4, 6, 1)  # noqa: E731
-        H = call()[0]
-        kernel += calls * time_ms(call, 3)
-        copy += calls * time_ms(lambda: H.cpu(), 3)
-    return {"sw_batch_ms": kernel, "h_copy_ms": copy}
+    for launch in launches:
+        shapes = [(n, m) for n, m, c in launch["shapes"] for _ in range(c)]
+        args = (*ragged_batch(shapes, len(shapes)), 1, -4, 6, 1, 128)
+        call = lambda: cuda_sw.sw_ragged(*args)  # noqa: E731
+        out = call()
+        kernel += time_ms(call, 3)
+        copy += time_ms(lambda: out.cpu(), 3)
+    return {"launches": len(launches), "sw_batch_ms": kernel,
+            "out_copy_ms": copy}
 
 
 def phase_slice_busy(sl, rows):
@@ -802,8 +859,8 @@ def phase_slice_busy(sl, rows):
                     "wall_s": sl["stage_wall_s"]["count"]},
           "filter": {"busy_ms": filter_ms,
                      "wall_s": sl["stage_wall_s"]["filter"]},
-          **{name: {**sw_busy(shapes), "wall_s": sl["stage_wall_s"][name]}
-             for name, shapes in sl["dp_shapes"].items()}})
+          **{name: {**sw_busy(launches), "wall_s": sl["stage_wall_s"][name]}
+             for name, launches in sl["dp_launches"].items()}})
 
 
 def phase_radix(data, work, seed):
@@ -880,8 +937,12 @@ def main():
         sl, hl_path = phase_slice(data, os.path.join(work, "run"))
         phase_bam(data, work, os.path.join(work, "run"), sl, args.seed)
         phase_pulls(os.path.join(work, "run"))
+        reads = max(sl["dp_launches"]["align_reads"],
+                    key=lambda x: x["pairs"])
         rows = phase_kernels(data, hl_path, sl["launches"], args.seed,
-                             sl["contig_dp_largest"])
+                             sl["contig_dp_largest"],
+                             [(n, m) for n, m, c in reads["shapes"]
+                              for _ in range(c)])
         phase_slice_busy(sl, rows)
         rows.append(phase_radix(data, work, args.seed))
     finally:

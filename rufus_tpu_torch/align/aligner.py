@@ -13,9 +13,10 @@ clip 5 — bwa-mem defaults) -> CIGAR via traceback, soft clips, split
 The port of ``rufus_tpu/align/aligner.py``: host code stays numpy, as
 there, so that float and tie behaviour are the same (``np.median`` of a
 cluster, the stable seed sort). ``Aligner.align_seqs`` runs every
-candidate's DP batched on the aligner's device (``sw_device.sw_batch``:
-the CUDA kernel on a card); ``align_seq`` without precomputed DPs runs the
-host ``sw_kernel``, as the MOB pass does in the JAX package.
+candidate's DP and traceback in one launch a group on the aligner's device
+(``sw_device.sw_align``: the CUDA kernel on a card, H never leaving it);
+``align_seq`` without precomputed DPs runs the host ``sw_kernel`` and
+``_traceback``, as the MOB pass does in the JAX package.
 """
 
 from __future__ import annotations
@@ -402,7 +403,7 @@ class Aligner:
         self.ref = ref
         self.sc = scoring
         self.device = torch.device(device)  # where align_seqs' DPs run
-        self.dp_batches: list = []  # (B, n, m) of every batched DP call
+        self.dp_batches: list = []  # every launch's [(n, m)] of pairs
 
     def _candidates(self, codes: np.ndarray):
         """Seed -> diagonal clusters -> candidate (gstart, count) windows."""
@@ -450,22 +451,24 @@ class Aligner:
         return codes, window, g0
 
     def _extend(self, seq: str, diag: int, pad: int | None = None, dp=None):
-        """Align one candidate. `dp` carries a precomputed (H, score,
-        bi, bj) from the batched device DP (sw_device.sw_batch,
-        bit-identical to sw_kernel); without it the host DP runs here."""
+        """Align one candidate. `dp` carries a precomputed (score, bi, bj,
+        qi, rj, nm, ops) from the batched device DP and traceback
+        (sw_device.sw_align, bit-identical to sw_kernel and _traceback);
+        without it the host DP and traceback run here."""
         win = self._window(seq, diag, pad)
         if win is None:
             return None
         codes, window, g0 = win
         L = len(codes)
         if dp is None:
-            best, H = sw_kernel(codes, window, self.sc)
-            score, bi, bj = best
+            (score, bi, bj), H = sw_kernel(codes, window, self.sc)
+            if score <= 0:
+                return None
+            qi, rj, ops, nm = _traceback(codes, window, H, bi, bj, self.sc)
         else:
-            H, score, bi, bj = dp
-        if score <= 0:
-            return None
-        qi, rj, ops, nm = _traceback(codes, window, H, bi, bj, self.sc)
+            score, bi, bj, qi, rj, nm, ops = dp
+            if score <= 0:
+                return None
         # bwa-mem clip preference: extend (ungapped) to each read end unless
         # the extension scores worse than -CLIP_PEN (bwa-mem zdrop/pen_clip5)
         head_ops, head_nm, d = self._clip_extend(codes, window, qi, rj, -1)
@@ -524,9 +527,9 @@ class Aligner:
 
         With splits=True, re-aligns long unaligned tails as supplementary
         records (bwa mem -Y behavior needed by interpret's SV passes).
-        _dp_map: {(strand, diag): (H, score, bi, bj)} precomputed by the
-        batched device path (align_seqs); absent entries fall back to the
-        host DP.
+        _dp_map: {(strand, diag): (score, bi, bj, qi, rj, nm, ops)}
+        precomputed by the batched device path (align_seqs); absent entries
+        fall back to the host DP and traceback.
         """
         fwd = seq.upper()
         rev = codec.revcomp_str(fwd)
@@ -568,88 +571,65 @@ class Aligner:
             out.extend(self._find_splits(name, qual, best, results))
         return out
 
-    # bound on live H matrices per group of the batched path (the H of a
-    # candidate is (n+1)x(m+1) i32; views keep their chunk arrays alive,
-    # so memory is controlled by grouping ITEMS, not by the chunk size)
-    sw_group_budget = 256 << 20
+    # bound on the device bytes of the H workspace of one launch (H of a
+    # candidate is (n+1) rows of m+1 int32, rounded up to 4 columns, and
+    # stays on the device); a group of items is cut where it would pass it
+    sw_group_budget = 1 << 30
 
-    def align_seqs(self, items, splits: bool = False, batch: int = 256):
-        """Batched alignment: the candidate DPs of MANY sequences run as
-        chunked device kernels (sw_device.sw_batch on self.device), then
-        each sequence's traceback/selection proceeds exactly as align_seq:
-        bit-identical output (the device DP equals the host DP; everything
-        downstream is shared code).
+    def align_seqs(self, items, splits: bool = False):
+        """Batched alignment: the candidate DPs and tracebacks of MANY
+        sequences run as one device launch a group (sw_device.sw_align on
+        self.device), then each sequence's selection proceeds exactly as
+        align_seq: bit-identical output (the device DP and traceback equal
+        the host ones; everything downstream is shared code).
 
-        items: iterable of (name, seq, qual). `batch` caps candidates per
-        device call; items are additionally processed in groups whose
-        total H footprint stays under sw_group_budget, so host memory is
-        O(budget) regardless of item count."""
-        items = list(items)
+        items: iterable of (name, seq, qual). Items are processed in groups
+        whose candidates' H workspace stays under sw_group_budget."""
         out = []
-        g0 = 0
-        while g0 < len(items):
-            g1, est = g0, 0
-            while g1 < len(items) and (est < self.sw_group_budget
-                                       or g1 == g0):
-                L = len(items[g1][1])
-                est += 2 * MAX_CANDS * (L + 1) * (L + 2 * self.sc.pad + 1) * 4
-                g1 += 1
-            out.extend(self._align_group(items[g0:g1], splits, batch))
-            g0 = g1
+        group, cands, est = [], [], 0
+        for item in items:
+            mine = self._item_candidates(item[1])
+            nbytes = sum(4 * (len(q) + 1) * ((len(w) + 4) // 4 * 4)
+                         for _, _, q, w in mine)
+            if group and est + nbytes > self.sw_group_budget:
+                out.extend(self._align_group(group, cands, splits))
+                group, cands, est = [], [], 0
+            group.append(item)
+            cands.append(mine)
+            est += nbytes
+        if group:
+            out.extend(self._align_group(group, cands, splits))
         return out
 
-    def _align_group(self, items, splits, batch):
-        # phase 1: every candidate window (host seed lookup, done ONCE —
-        # phase 3 reuses the diagonal lists instead of re-seeding)
-        cand_list = []  # (item_idx, strand, diag, codes, window, g0)
-        dp_maps = [dict() for _ in items]
-        for idx, (name, seq, qual) in enumerate(items):
-            fwd = seq.upper()
-            rev = codec.revcomp_str(fwd)
-            for strand, s in ((0, fwd), (1, rev)):
-                codes = encode(np.frombuffer(s.encode(), np.uint8))
-                diags = []
-                for diag, _cnt in self._candidates(codes):
-                    win = self._window(s, diag)
-                    if win is None:
-                        continue
-                    diags.append(diag)
-                    cand_list.append((idx, strand, diag) + win)
-                dp_maps[idx][("cands", strand)] = diags
-
-        # phase 2: chunked device DPs, bucketed by pad shape
-        if cand_list:
-            def rnd(x, m=32):
-                return -(-x // m) * m
-
-            buckets: dict[tuple[int, int], list] = {}
-            for cand in cand_list:
-                q, w = cand[3], cand[4]
-                buckets.setdefault((rnd(len(q)), rnd(len(w))), []).append(cand)
-            for (qn, wn), cands in buckets.items():
-                for b0 in range(0, len(cands), batch):
-                    chunk = cands[b0 : b0 + batch]
-                    qb = np.full((len(chunk), qn), 255, np.uint8)
-                    wb = np.full((len(chunk), wn), 255, np.uint8)
-                    for i, (_, _, _, q, w, _) in enumerate(chunk):
-                        qb[i, : len(q)] = q
-                        wb[i, : len(w)] = w
-                    H, s, bi, bj = sw_device.sw_batch(qb, wb, self.sc,
-                                                      device=self.device)
-                    self.dp_batches.append((len(chunk), qn, wn))
-                    for i, (idx, strand, diag, q, w, g0) in enumerate(chunk):
-                        # slice H back to the candidate's true dims: 255
-                        # padding never matches, so the region is exact
-                        dp_maps[idx][(strand, diag)] = (
-                            H[i, : len(q) + 1, : len(w) + 1],
-                            int(s[i]), int(bi[i]), int(bj[i]))
-
-        # phase 3: per-sequence selection, unchanged host logic
+    def _item_candidates(self, seq):
+        """Every candidate window of a sequence on both strands (host seed
+        lookup, done ONCE: selection reuses the diagonal lists instead of
+        re-seeding): [(strand, diag, codes, window)]."""
+        fwd = seq.upper()
+        rev = codec.revcomp_str(fwd)
         out = []
-        for idx, (name, seq, qual) in enumerate(items):
-            out.append(self.align_seq(name, seq, qual, splits,
-                                      _dp_map=dp_maps[idx]))
+        for strand, s in ((0, fwd), (1, rev)):
+            codes = encode(np.frombuffer(s.encode(), np.uint8))
+            for diag, _cnt in self._candidates(codes):
+                win = self._window(s, diag)
+                if win is not None:
+                    out.append((strand, diag, win[0], win[1]))
         return out
+
+    def _align_group(self, items, cands, splits):
+        flat = [(idx, c) for idx, mine in enumerate(cands) for c in mine]
+        dp_maps = [{("cands", 0): [], ("cands", 1): []} for _ in items]
+        for idx, (strand, diag, _, _) in flat:
+            dp_maps[idx][("cands", strand)].append(diag)
+        if flat:
+            pairs = [(q, w) for _, (_, _, q, w) in flat]
+            res = sw_device.sw_align(pairs, self.sc, device=self.device)
+            self.dp_batches.append([(len(q), len(w)) for q, w in pairs])
+            for (idx, (strand, diag, _, _)), dp in zip(flat, res):
+                dp_maps[idx][(strand, diag)] = dp
+        # per-sequence selection, unchanged host logic
+        return [self.align_seq(name, seq, qual, splits, _dp_map=dp_maps[idx])
+                for idx, (name, seq, qual) in enumerate(items)]
 
     @staticmethod
     def _q_interval(res, L):

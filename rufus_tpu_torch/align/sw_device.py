@@ -1,14 +1,13 @@
 """Batched Smith-Waterman on the device: the aligner's candidate DPs.
 
-The port of ``rufus_tpu/align/sw_device.py``'s ``sw_batch``: the same
-numpy-in, numpy-out contract, with the DP run by ``ops.cuda_sw.sw_batch``
-(the CUDA kernel ``csrc/sw_batch.cu`` on a card, its plain PyTorch version
-on the CPU). H, the best score and the first best cell are bit-identical
-to the JAX program and to the host ``aligner.sw_kernel``, so the host
-traceback, clip extension and MAPQ that follow are unchanged.
-
-H for a batch is (B, n+1, m+1) int32 and crosses to the host whole, since
-the traceback reads it there; callers bound B (``Aligner.align_seqs``).
+The port of ``rufus_tpu/align/sw_device.py``'s ``sw_batch`` for the
+aligner, ``sw_align``: every candidate of a group in one ragged call of
+``ops.cuda_sw.sw_ragged`` (the CUDA kernel ``csrc/sw_batch.cu`` on a card,
+its plain PyTorch version on the CPU), which runs the DP and the
+traceback together. H stays on the device; the per-pair results and ops
+cross to the host in one copy. They equal the host ``sw_kernel`` and
+``aligner._traceback``, so clip extension, MAPQ and SAM that follow are
+unchanged.
 """
 
 from __future__ import annotations
@@ -18,24 +17,36 @@ import torch
 
 from ..ops import cuda_sw
 
-MATCH, MISMATCH = 1, -4
-GAP_OPEN, GAP_EXT = 6, 1
+_OPS = np.frombuffer(b"MDI", np.uint8)  # cuda_sw.OP_M, OP_D, OP_I
 
 
-def sw_batch(q_codes: np.ndarray, r_codes: np.ndarray, scoring=None,
-             device="cuda"):
-    """Batched DP: (B, n) x (B, m) uint8 codes (255 = N/pad) -> (H, score,
-    bi, bj) as int32 numpy arrays, run on `device`. (bi, bj) is the first
-    maximum of the row-major H: the lexicographically smallest best cell,
-    the one the host sw_kernel reports."""
-    if scoring is None:
-        params = (MATCH, MISMATCH, GAP_OPEN, GAP_EXT)
-    else:
-        params = (scoring.match, scoring.mismatch, scoring.gap_open,
-                  scoring.gap_ext)
-    dev = torch.device(device)
-    q = torch.from_numpy(np.ascontiguousarray(q_codes, np.uint8)).to(dev)
-    r = torch.from_numpy(np.ascontiguousarray(r_codes, np.uint8)).to(dev)
-    H, s, bi, bj = cuda_sw.sw_batch(q, r, *params)
-    return (H.cpu().numpy(), s.cpu().numpy(), bi.cpu().numpy(),
-            bj.cpu().numpy())
+def sw_align(pairs, scoring, device="cuda"):
+    """Local alignment of (query codes, window codes) pairs, one launch:
+    a list, in the order of `pairs`, of (score, bi, bj, qi, rj, nm, ops),
+    the DP's best score and first best cell and ``aligner._traceback``'s
+    (qi, rj, ops, nm) from it, ops a list of "M"/"D"/"I" in query order.
+    `scoring` is an aligner.Scoring; the traceback's gap search is bounded
+    by max(128, 2 * scoring.pad). Pairs run largest (n*m) first."""
+    params = (scoring.match, scoring.mismatch, scoring.gap_open,
+              scoring.gap_ext)
+    B = len(pairs)
+    n = np.array([len(q) for q, _ in pairs], np.int64)
+    m = np.array([len(r) for _, r in pairs], np.int64)
+    order = np.argsort(-(n * m), kind="stable")
+    n, m = n[order], m[order]
+    codes = np.concatenate(
+        [pairs[p][0] for p in order] + [pairs[p][1] for p in order]
+        + [np.empty(0, np.uint8)]).astype(np.uint8, copy=False)
+    qoff = cuda_sw.offsets(n)
+    roff = int(n.sum()) + cuda_sw.offsets(m)
+    out = cuda_sw.sw_ragged(torch.from_numpy(codes).to(device), qoff, n,
+                            roff, m, *params, max(128, 2 * scoring.pad))
+    res, ops = cuda_sw.unpack(out.cpu().numpy(), B)
+    ooff = cuda_sw.ops_offsets(n, m)
+    results = [None] * B
+    for slot, p in enumerate(order):
+        score, bi, bj, qi, rj, nm, k = (int(v) for v in res[slot])
+        walk = ops[ooff[slot] : ooff[slot] + k][::-1]
+        results[p] = (score, bi, bj, qi, rj, nm,
+                      list(_OPS[walk].tobytes().decode()))
+    return results

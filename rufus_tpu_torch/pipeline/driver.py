@@ -16,9 +16,10 @@ from the subject BAM/CRAM (the stranded pair stream), or single-end reads
 from the subject.
 
 Read and contig alignment run the seed-and-extend aligner (``align/``)
-with every batched candidate DP on the device (the ``sw_batch`` CUDA
-kernel); assembly is host Python (``assembly/``); the genotype pulls search
-the resident sample tables on the device (``ops/query.py``). Interpret and
+with every batched candidate DP and its traceback on the device (the
+``sw_batch`` CUDA kernel, one launch a group); assembly is host Python
+(``assembly/``); the genotype pulls search the resident sample tables on
+the device (``ops/query.py``). Interpret and
 polish, the memory model and multi-GPU are not ported yet: ``run`` refuses
 them and names the ROADMAP.md entry that will bring each.
 """
@@ -69,15 +70,26 @@ class SamLikeRec:
     tlen: int = 0
 
 
-def _dp_summary(batches) -> dict:
-    """The trace's record of an aligner's batched DP calls: how many, the
-    candidate pairs they held, the (B, n, m) of the one with the largest H
-    a pair, and every (B, n, m) with its number of calls."""
-    return {"calls": len(batches), "pairs": sum(b for b, _, _ in batches),
-            "largest": max(batches, key=lambda x: (x[1] * x[2], x[0]),
-                           default=None),
-            "shapes": [[*shape, c] for shape, c in
-                       sorted(collections.Counter(batches).items())]}
+def _dp_summary(launches) -> dict:
+    """The trace's record of an aligner's batched DP launches (each a list
+    of its pairs' (n, m)): how many, their pairs and DP cells, the (n, m)
+    of the largest pair, and for each launch its pairs, cells, largest pair,
+    the bytes its results take to the host (28 a pair and n+m of ops) and
+    every (n, m) with its number of pairs."""
+    def one(pairs):
+        return {"pairs": len(pairs), "cells": sum(n * m for n, m in pairs),
+                "host_bytes": sum(28 + n + m for n, m in pairs),
+                "largest": list(max(pairs, key=lambda x: (x[0] * x[1], x))),
+                "shapes": [[*shape, c] for shape, c in
+                           sorted(collections.Counter(pairs).items())]}
+
+    each = [one(pairs) for pairs in launches]
+    return {"calls": len(each), "pairs": sum(e["pairs"] for e in each),
+            "cells": sum(e["cells"] for e in each),
+            "host_bytes": sum(e["host_bytes"] for e in each),
+            "largest": max((e["largest"] for e in each),
+                           key=lambda x: (x[0] * x[1], x), default=None),
+            "launches": each}
 
 
 def input_kind(path: str) -> str:

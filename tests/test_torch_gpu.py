@@ -427,11 +427,13 @@ def _sw_inputs(rng, B, n, m, fill):
 @pytest.mark.parametrize("B,n,m,fill", [
     (256, 160, 288, "random"), (256, 160, 288, "copies"),
     (64, 160, 288, "pad"), (8, 160, 288, "all_n"),
-    (33, 64, 1023, "copies"),   # one column a thread, 1024 threads
-    (17, 600, 1100, "copies"),  # two columns a thread, idle threads
-    (5, 900, 4000, "random"),   # four columns a thread
-    (4, 300, 6000, "copies"),   # rows past 48 KB of shared memory
-    (3, 40, 20000, "copies"),   # rows past shared memory: the workspace
+    (33, 64, 1023, "copies"),   # 16 columns a lane, two tiles
+    (17, 600, 1100, "copies"),  # three tiles, 35 KB of shared memory
+    (5, 900, 4000, "random"),   # eight tiles, 42 KB of shared memory
+    (4, 300, 5500, "copies"),   # past 48 KB of shared memory
+    (4, 300, 6000, "copies"),
+    (3, 40, 20000, "copies"),   # 200 KB of shared memory
+    (2, 30, 24000, "copies"),   # rows past shared memory: the workspace
     (2, 0, 40, "random"),       # no query rows: H is row 0
     (1, 1, 1, "random"),
 ])
@@ -450,6 +452,58 @@ def test_sw_batch_kernel(scoring, B, n, m, fill):
     if fill == "all_n":
         assert not bool(got[0].any())
         assert not bool(torch.stack(got[1:]).any())  # (0, 0, 0)
+
+
+def _ragged_inputs(rng, shapes, fill):
+    """A ragged batch: pairs of the given (n, m), codes as _sw_inputs, packed
+    as sw_device.sw_align packs them (largest n*m first)."""
+    shapes = sorted(shapes, key=lambda s: -s[0] * s[1])
+    qs, rs = [], []
+    for n, m in shapes:
+        q, r = _sw_inputs(rng, 1, n, m, fill)
+        qs.append(q[0])
+        rs.append(r[0])
+    n = np.array([s[0] for s in shapes], np.int64)
+    m = np.array([s[1] for s in shapes], np.int64)
+    codes = np.concatenate(qs + rs + [np.empty(0, np.uint8)])
+    return (codes, cuda_sw.offsets(n), n, int(n.sum()) + cuda_sw.offsets(m),
+            m)
+
+
+_RAGGED = {
+    # the read path: 150 bp reads (some shorter) and their windows
+    "reads": lambda rng: [(int(L), int(L) + 128) for L in
+                          rng.choice([150, 150, 150, 143, 101], 256)],
+    "contig_largest": lambda rng: [(864, 992)],
+    "wide": lambda rng: [(40, 20000), (30, 19000), (12, 700)],
+    "widest": lambda rng: [(20, 24000), (9, 30)],  # the workspace
+    "mixed": lambda rng: [(int(a), int(a) + int(b)) for a, b in zip(
+        rng.integers(0, 900, 40), rng.integers(1, 300, 40))] + [(1, 1)],
+    "tiny": lambda rng: [(0, 5), (3, 1), (2, 2), (31, 120)],
+}
+
+
+@pytest.mark.parametrize("scoring", ["default", "mob"])
+@pytest.mark.parametrize("case", list(_RAGGED))
+@pytest.mark.parametrize("fill", ["copies", "random"])
+def test_sw_ragged_kernel(scoring, case, fill):
+    """The fused DP and traceback against its plain version: every result
+    field and every op, byte for byte (the zeroed tail included)."""
+    dev = _card()
+    rng = np.random.default_rng(len(case) * 100 + len(fill))
+    codes, qoff, n, roff, m = _ragged_inputs(rng, _RAGGED[case](rng), fill)
+    c = torch.from_numpy(codes).to(dev)
+    gap_max = 128 if scoring == "default" else 1000
+    before = cuda_sw.sw_ragged.launches
+    got = cuda_sw.sw_ragged(c, qoff, n, roff, m, *_SCORES[scoring], gap_max)
+    torch.cuda.synchronize()
+    assert cuda_sw.sw_ragged.launches == before + 1
+    want = cuda_sw.sw_ragged_torch(c, qoff, n, roff, m, *_SCORES[scoring],
+                                   gap_max)
+    assert got.dtype == torch.uint8 and torch.equal(got, want)
+    res = cuda_sw.unpack(got, len(n))[0]
+    if fill == "copies" and case != "tiny":
+        assert int(res[:, 6].max()) > 0  # walks were taken
 
 
 @pytest.mark.parametrize("single_end", [False, True])
@@ -475,12 +529,12 @@ def test_contig_slice_on_card_equals_slice_on_cpu(tmp_path, single_end):
     outs, lines = {}, {}
     for device in ("cuda", "cpu"):
         wd = tmp_path / device
-        before = cuda_sw.sw_batch.launches
+        before = cuda_sw.sw_ragged.launches
         res = RufusPipeline(RufusConfig(
             k=25, workdir=str(wd), exome=True, min_cov=5, ref=str(ref),
             stop_after="contig_align", batch_size=1024, device=device,
             **kw)).run()
-        launches = cuda_sw.sw_batch.launches - before
+        launches = cuda_sw.sw_ragged.launches - before
         assert (launches > 0) == (device == "cuda")
         outs[device], lines[device] = wd, res["stdin_lines"]
     assert lines["cuda"] == lines["cpu"] and lines["cpu"]
