@@ -15,26 +15,37 @@ Phases, each printing one JSON line; any failure exits non-zero:
              genome of --genome-mbp Mbp, 30x of 150 bp pairs per sample
              (0.2% substitution errors, 2% low-quality bases), the child
              with 100 de novo SNVs at VAF 0.5; and the genome as the
-             reference FASTA;
+             reference FASTA, its contig named "1" (polish keeps only rows
+             on contigs named (chr)?[1-9XY]);
 4. slice   - runs the port's pipeline from the FASTQ files (the native
              decoders; RufusPipeline, batch_size 65536,
-             read_pad 160, k 25, the default ModelDist fit) through
-             contig alignment (stop_after "contig_align": read alignment,
-             assembly, contig alignment and the genotype pulls) with every
-             kernel launch count set to 0 first; prints per-stage seconds
-             (the model fit on its own line), unique k-mers, HashList
-             size, kept pairs, peak device memory and the launches, then
-             one line for each of align_reads, assemble and contig_align
-             (wall s, device peak, reads aligned and mapped, duplicate
-             pairs, contigs, contig alignments and splits, k-mers pulled
-             from each sample's table, and each sw launch's pairs, DP
-             cells, largest pair and bytes copied to the host) and one
-             with how many spiked sites lie inside a mapped contig's
-             primary alignment (recall, not a gate);
-             checks every kernel launched, that no call returned H (the
-             dense cuda_sw.sw_batch, the tests' view, launched 0 times),
-             that kept pairs span >= 95 of the 100 spiked sites, and that
-             contigs were aligned;
+             read_pad 160, k 25, the default ModelDist fit) to
+             FINAL.vcf.gz (the full run: read alignment, assembly, contig
+             alignment and the genotype pulls, interpret, polish) with
+             every kernel launch count set to 0 first; prints per-stage
+             seconds (the model fit on its own line), unique k-mers,
+             HashList size, kept pairs, peak device memory and the
+             launches, then one line for each of align_reads, assemble and
+             contig_align (wall s, device peak, reads aligned and mapped,
+             duplicate pairs, contigs, contig alignments and splits, k-mers
+             pulled from each sample's table, and each sw launch's pairs,
+             DP cells, largest pair and bytes copied to the host), one with
+             how many spiked sites lie inside a mapped contig's primary
+             alignment (recall, not a gate), an interpret line (wall s,
+             rows, rows by ID label and by FILTER), a polish line (wall s,
+             FINAL.vcf rows, and the rows polish keeps with mosaic on the
+             same interpret VCF) and a vcf_sites line (the spiked sites
+             with a row at ("1", site+1) in each VCF; reported, not a
+             gate); checks every kernel launched, that no call returned H
+             (the dense cuda_sw.sw_batch, the tests' view, launched 0
+             times), that kept pairs span >= 95 of the 100 spiked sites,
+             that contigs were aligned, that interpret wrote rows, and that
+             FINAL.vcf.gz and its .tbi exist and the tabix query over the
+             whole contig returns FINAL.vcf's rows;
+   regenotype - a fresh RufusPipeline on the slice's workdir re-genotypes
+             its contigs against the parents' saved tables (.table.npz):
+             its FINAL.vcf must equal the run's in every line but
+             ##fileDate;
 5. bam     - the same trio as coordinate-sorted aligned BAMs
              (synthetic.write_trio_bams: the FASTQ reads at their true
              positions, 0.5% of pairs unmapped, 0.1% extra secondary,
@@ -130,6 +141,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 K, BATCH, READ_PAD, PENDING = 25, 65536, 160, 96 << 20
 RADIX_N = 26_000_000  # the radix tool's default n (cut to 25,993,216)
 LARGE_T, LARGE_HITS = 65536, 4096  # window_hits' second HashList
+REF_CONTIG = "1"  # polish keeps rows on contigs named (chr)?[1-9XY] only
 
 
 def emit(obj):
@@ -232,7 +244,7 @@ def phase_data(out_dir, genome_mbp, seed):
                                 coverage=30, n_denovo=100, seed=seed)
     data["ref"] = os.path.join(out_dir, "ref.fa")
     with open(data["ref"], "wb") as fh:
-        fh.write(b">" + synthetic.REF_NAME.encode() + b"\n"
+        fh.write(b">" + REF_CONTIG.encode() + b"\n"
                  + data["genome"].tobytes() + b"\n")
     emit({"phase": "data", "seconds": time.perf_counter() - t0,
           "genome_bp": int(genome_mbp * 1e6), "pairs_per_sample":
@@ -270,24 +282,78 @@ def _sam_intervals(path):
     return out
 
 
+def slice_config(data, workdir):
+    """The slice's configuration: the full run from the FASTQ files."""
+    from rufus_tpu_torch.pipeline import RufusConfig
+
+    c, m, f = data["child"], data["mother"], data["father"]
+    return RufusConfig(subject=",".join(c), controls=[",".join(m), ",".join(f)],
+                       k=K, batch_size=BATCH, read_pad=READ_PAD,
+                       workdir=workdir, fastq_a=c[0], fastq_b=c[1],
+                       ref=data["ref"], device="cuda")
+
+
+def vcf_rows(path):
+    with open(path) as fh:
+        return [line.rstrip("\n").split("\t") for line in fh
+                if not line.startswith("#")]
+
+
+def phase_vcf(data, cfg, stages, final):
+    """The interpret and polish lines, the spiked sites in the two VCFs,
+    and the gates on FINAL.vcf: its .gz and .tbi exist, the tabix query
+    over the whole contig returns its rows, and the interpret VCF has
+    rows."""
+    import tempfile
+
+    from rufus_tpu_torch.io import bgzf
+    from rufus_tpu_torch.pipeline.polish import polish_vcf
+
+    vcf = final[: -len(".FINAL.vcf")] + ".vcf"
+    rows, final_rows = vcf_rows(vcf), vcf_rows(final)
+    label = lambda r: ("DeNovo" if "DeNovo" in r[2] else  # noqa: E731
+                       "Mosaic" if "Mosaic" in r[2] else "other")
+    by_id = {k: sum(label(r) == k for r in rows)
+             for k in ("DeNovo", "Mosaic", "other")}
+    emit({"phase": "interpret", "wall_s": stages["interpret"]["wall_s"],
+          "rows": len(rows), "by_id": by_id,
+          "by_filter": {"PASS": sum(r[6] == "PASS" for r in rows),
+                        "other": sum(r[6] != "PASS" for r in rows)}})
+    with tempfile.TemporaryDirectory(dir=cfg.workdir) as tmp:
+        mosaic = vcf_rows(polish_vcf(vcf, os.path.join(tmp, "m.vcf"),
+                                     with_mosaic=True))
+    emit({"phase": "polish", "wall_s": stages["polish"]["wall_s"],
+          "final_rows": len(final_rows), "with_mosaic_rows": len(mosaic)})
+    sites = {int(s) + 1 for s in data["sites"]}
+    at = lambda rs: len(sites & {int(r[1]) for r in rs  # noqa: E731
+                                 if r[0] == REF_CONTIG})
+    emit({"phase": "vcf_sites", "sites": len(sites), "in_vcf": at(rows),
+          "in_final": at(final_rows)})
+    for ext in (".gz", ".gz.tbi"):
+        if not os.path.exists(final + ext):
+            raise AssertionError(f"the full run wrote no FINAL.vcf{ext}")
+    got = bgzf.tabix_query(final + ".gz", REF_CONTIG, 0,
+                           len(data["genome"]))
+    if got != sorted({"\t".join(r) for r in final_rows}):
+        raise AssertionError("the tabix query over the contig does not "
+                             "return FINAL.vcf's rows")
+    if not rows:
+        raise AssertionError("interpret wrote no row")
+
+
 def phase_slice(data, workdir):
     from rufus_tpu_torch import synthetic
-    from rufus_tpu_torch.pipeline import RufusConfig, RufusPipeline
+    from rufus_tpu_torch.pipeline import RufusPipeline
 
     from rufus_tpu_torch.ops import cuda_sw
 
-    c, m, f = data["child"], data["mother"], data["father"]
-    cfg = RufusConfig(subject=",".join(c), controls=[",".join(m), ",".join(f)],
-                      k=K, batch_size=BATCH, read_pad=READ_PAD,
-                      workdir=workdir, stop_after="contig_align",
-                      fastq_a=c[0], fastq_b=c[1], ref=data["ref"],
-                      device="cuda")
+    cfg = slice_config(data, workdir)
     pipe = RufusPipeline(cfg)
     kernels = dict(_kernels(), sw_batch=cuda_sw.sw_ragged)
     for fn in (*kernels.values(), cuda_sw.sw_batch):
         fn.launches = 0
     t0 = time.perf_counter()
-    inputs = pipe.run()
+    final = pipe.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
@@ -303,10 +369,11 @@ def phase_slice(data, workdir):
     contig_sam = cfg.wpath(cfg.name_stub + ".overlap.hashcount.fastq.sam")
     spans = _sam_intervals(contig_sam)
     in_contig = sum(any(a <= s < b for a, b in spans) for s in data["sites"])
+    sam_lines = stages["contig_align"]["sam_lines"]
     emit({"phase": "contig_recall", "sites_in_contigs": int(in_contig),
           "sites": int(len(data["sites"])),
-          "primary_alignments": len(spans),
-          "sam_lines": len(inputs["stdin_lines"])})
+          "primary_alignments": len(spans), "sam_lines": sam_lines})
+    phase_vcf(data, cfg, stages, final)
     count_reads = sum(stages["count"]["reads"].values())
     with open(m1) as fh:
         kept = sum(1 for _ in fh) // 4
@@ -345,9 +412,38 @@ def phase_slice(data, workdir):
     if len(spanned) < 95:
         raise AssertionError(f"kept pairs span {len(spanned)} of 100 spiked "
                              "sites (< 95)")
-    if not spans or not inputs["stdin_lines"]:
+    if not spans or not sam_lines:
         raise AssertionError("no contig was aligned")
     return info, os.path.join(workdir, hl)
+
+
+def phase_regenotype(data, workdir):
+    """--regenotype on the card: a fresh pipeline on the slice's workdir,
+    the parents' saved tables; its FINAL.vcf must equal the run's in every
+    line but ##fileDate."""
+    from rufus_tpu_torch.ops import count
+    from rufus_tpu_torch.pipeline import RufusPipeline
+
+    cfg = slice_config(data, workdir)
+    pipe = RufusPipeline(cfg)
+    undated = lambda p: [line for line in open(p)  # noqa: E731
+                         if not line.startswith("##fileDate=")]
+    before = undated(pipe.final_path())
+    tables = [count.KmerTable.load(cfg.wpath(cfg.control_stub(c)
+                                             + ".table.npz"))
+              for c in cfg.controls]
+    t0 = time.perf_counter()
+    final = pipe.regenotype(tables)
+    torch.cuda.synchronize()
+    after = undated(final)
+    emit({"phase": "regenotype", "wall_s": time.perf_counter() - t0,
+          "final_rows": sum(not line.startswith("#") for line in after),
+          "equal": after == before})
+    if after != before:
+        raise AssertionError("regenotype's FINAL.vcf differs from the run's")
+
+
+
 
 
 def peak_rss() -> int:
@@ -935,6 +1031,7 @@ def main():
         data = phase_data(os.path.join(work, "fastq"), args.genome_mbp,
                           args.seed)
         sl, hl_path = phase_slice(data, os.path.join(work, "run"))
+        phase_regenotype(data, os.path.join(work, "run"))
         phase_bam(data, work, os.path.join(work, "run"), sl, args.seed)
         phase_pulls(os.path.join(work, "run"))
         reads = max(sl["dp_launches"]["align_reads"],

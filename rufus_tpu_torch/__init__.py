@@ -1,13 +1,14 @@
 """rufus_tpu_torch — the PyTorch/CUDA port of rufus_tpu.
 
 The JAX package (``rufus_tpu``) is the reference this port is held
-against; the port imports none of it. It covers the trio pipeline up to
-``stop_after="contig_align"``: k-mer counting, the ModelDist depth fit,
-the subject-minus-controls subtract, the mutant-read filter, read
-alignment, assembly, and contig alignment with the genotype pulls, which
-return interpret's inputs. The three Pallas kernels of that path and the
-aligner's batched Smith-Waterman DP are CUDA kernels written for the H100
-(``csrc/*.cu``), as is the radix tool's partition.
+against; the port imports none of it. It runs the trio pipeline from
+reads to FINAL.vcf: k-mer counting, the ModelDist depth fit, the
+subject-minus-controls subtract, the mutant-read filter, read alignment,
+assembly, contig alignment with the genotype pulls, interpret and polish;
+and the long-read and regenotype entry points. The three Pallas kernels
+of that path and the aligner's batched Smith-Waterman DP are CUDA kernels
+written for the H100 (``csrc/*.cu``), as is the radix tool's partition;
+interpret and polish are host Python, as in the JAX package.
 
 Design notes
 ------------

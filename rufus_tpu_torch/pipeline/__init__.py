@@ -1,5 +1,5 @@
-"""The trio pipeline through contig alignment (runRufus.sh and
-Overlap.shorter.sh up to RUFUS.interpret's inputs)."""
+"""The trio pipeline from reads to FINAL.vcf (runRufus.sh,
+Overlap.shorter.sh, RUFUS.interpret and the polish scripts)."""
 
 from .config import RufusConfig  # noqa: F401
 from .driver import RufusPipeline  # noqa: F401

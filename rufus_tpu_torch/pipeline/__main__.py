@@ -1,26 +1,18 @@
 """CLI: python -m rufus_tpu_torch.pipeline -s child.bam -c mom.bam
--c dad.bam -r ref.fa --stop-after contig_align
+-c dad.bam -r ref.fa
 
-The JAX package's flag surface (runRufus.sh:74-131), plus --device. This
-slice runs through --stop-after contig_align on BAM, CRAM or FASTQ input
-(FASTQ pairs comma-separated, with -q1/-q2 for the filter). The flags that
-only interpret, polish and the CLI's other paths read are accepted by the
-parser and refused when set, since nothing here would honour them.
+The JAX package's flag surface (runRufus.sh:74-131), plus --device. Runs
+the pipeline on BAM, CRAM or FASTQ input (FASTQ pairs comma-separated,
+with -q1/-q2 for the filter) to FINAL.vcf, or through --stop-after; with
+--pacbio the long-read path, with --regenotype the contigs already in
+--workdir against new control tables (.npz). Prints what the run returns.
 """
 
 import argparse
 
+from ..ops import count
 from .config import RufusConfig
 from .driver import STOP_STAGES, RufusPipeline, _not_ported
-
-# flags read only by stages this slice does not run -> ROADMAP.md entry
-LATER_FLAGS = {
-    "maxAllele": "interpret, polish",
-    "mosaic": "interpret, polish",
-    "clean": "interpret, polish",
-    "pacbio": "interpret, polish",
-    "regenotype": "interpret, polish",
-}
 
 
 def main():
@@ -55,30 +47,32 @@ def main():
                         "(scripts/RunRUFUS.Tumor.sh)")
     p.add_argument("--speed", default="full", choices=["full", "veryfast"])
     p.add_argument("--workdir", default=".")
-    p.add_argument("--stop-after", default="",
-                   choices=["", *STOP_STAGES])
+    p.add_argument("--stop-after", default="", choices=STOP_STAGES)
     p.add_argument("--haploid", action="store_true",
                    help="ModelDist.haploid depth-model fit")
     p.add_argument("--saliva", action="store_true",
                    help="aligned-only mutant reads (runRufus.sh:1062-1076)")
     p.add_argument("--clean", action="store_true",
-                   help="-CLEAN: purge intermediates after the run")
+                   help="-CLEAN: purge intermediates after the run "
+                        "(runRufus.sh:351-356)")
     p.add_argument("--sharded", default="auto", choices=["auto", "on", "off"],
                    help="multi-device pipeline (not ported: one device)")
     p.add_argument("--flat-index", default="",
                    help="memmapped seed index for the aligner")
     p.add_argument("--pacbio", nargs="?", const="", default=None,
-                   metavar="CONTIGS_FASTA", help="long-read path")
+                   metavar="CONTIGS_FASTA",
+                   help="long-read (HiFi) path (Overlap.pacbio.sh role): "
+                        "no short-read assembly; an optional external "
+                        "assembly FASTA, else the filtered reads of the "
+                        "BAM/CRAM subject are the contigs")
     p.add_argument("--regenotype", nargs="+", default=None,
                    metavar="CONTROL_TABLE",
-                   help="re-genotype existing contigs against new tables")
+                   help="re-genotype existing contigs in --workdir against "
+                        "new control tables (.npz) (scripts/Genotype.sh)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the kernels' "
                         "plain PyTorch versions)")
     a = p.parse_args()
-    for dest, entry in LATER_FLAGS.items():
-        if getattr(a, dest) != p.get_default(dest):
-            _not_ported(f"--{dest}", entry)
     min_cov = a.min
     if a.tumor and min_cov is None:
         min_cov = 5  # RunRUFUS.Tumor.sh fixed cutoff
@@ -86,14 +80,25 @@ def main():
         subject=a.subject, controls=a.controls, ref=a.ref, k=a.k,
         threads=a.threads, workdir=a.workdir,
         min_cov=min_cov, filter_min_q=a.filterMinQ,
-        filter_k_threshold=a.filterK, par_low_k=a.parLowK,
+        filter_k_threshold=a.filterK, max_allele_size=a.maxAllele,
+        par_low_k=a.parLowK,
         exclude_hash=a.exclude, fastq_a=a.fastqA, fastq_b=a.fastqB,
-        mob_fasta=a.mob, ref_hash=a.refhash, exome=a.exome,
+        mob_fasta=a.mob, ref_hash=a.refhash, exome=a.exome, mosaic=a.mosaic,
         single_end=a.single_end, assembly_speed=a.speed,
         stop_after=a.stop_after, haploid=a.haploid, saliva=a.saliva,
-        sharded=a.sharded, flat_index=a.flat_index, device=a.device,
+        clean=a.clean, sharded=a.sharded, flat_index=a.flat_index,
+        device=a.device,
     )
-    out = RufusPipeline(cfg).run()
+    pipe = RufusPipeline(cfg)
+    if a.regenotype is not None:
+        for path in a.regenotype:
+            if path.endswith(".flat"):
+                _not_ported(f"the flat count table {path}", "memory model")
+        out = pipe.regenotype([count.KmerTable.load(p) for p in a.regenotype])
+    elif a.pacbio is not None:
+        out = pipe.run_longread(a.pacbio or None)
+    else:
+        out = pipe.run()
     if isinstance(out, dict):  # contig_align: interpret's inputs
         out = {k: (len(v) if k == "stdin_lines" else v)
                for k, v in out.items()}

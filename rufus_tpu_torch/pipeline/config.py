@@ -1,10 +1,10 @@
 """Typed pipeline configuration (replaces runRufus.sh's argbash parser,
 reference: runRufus.sh:135-366 with defaults at 27, 61-69, 424-435).
 
-The fields are those of the JAX package that the stages through contig
-alignment read, plus `device`. `count_passes`, `spill_tables` and `sharded` stay so
-a JAX configuration's values can be passed on; the driver refuses any
-value of theirs that it cannot honour."""
+The fields are those of the JAX package that the pipeline reads, plus
+`device`. `count_passes`, `spill_tables` and `sharded` stay so a JAX
+configuration's values can be passed on; the driver refuses any value of
+theirs that it cannot honour."""
 
 from __future__ import annotations
 
@@ -25,10 +25,12 @@ class RufusConfig:
     min_cov: int | None = None  # -m fixed MutantMinCov override
     filter_min_q: int = 15  # -fq
     filter_k_threshold: int = 1  # -fK
+    max_allele_size: int = 1000  # -L: interpret's largest variant
     par_low_k: int = 2  # -pl parent jellyfish -L
     subject_low_k: int = 2
     max_hash_depth_seed: int = 1200  # runRufus.sh:27
     exome: bool = False
+    mosaic: bool = False  # keep the Mosaic rows in FINAL.vcf
     single_end: bool = False  # filter single reads of a BAM/CRAM subject
     fastq_a: str = ""
     fastq_b: str = ""
@@ -41,8 +43,10 @@ class RufusConfig:
     genotype_max_cov: int = 100000  # Overlap.shorter.sh:20
     assembly_speed: str = "full"  # or "veryfast"
     stop_after: str = ""  # "jhash" | "hashlist" | "filter" (StJ/StH/StF)
-    # | "contig_align" (interpret's inputs); "" (the full run) is refused
+    # | "contig_align" (interpret's inputs) | "" (the full run, to FINAL.vcf)
     sharded: str = "auto"  # "on" is refused: one device
+    clean: bool = False  # -CLEAN: remove intermediates after the run
+    # (runRufus.sh:351-356)
     flat_index: str = ""  # path to a build_flat_index seed index: built
     # on first use and memmapped thereafter (align/aligner.py)
     saliva: bool = False  # aligned-only mutant reads for saliva samples

@@ -1,7 +1,7 @@
-"""The RUFUS trio pipeline on one CUDA device, through contig alignment:
-count -> model -> subtract -> filter -> align reads -> assemble -> align
-contigs and pull genotype counts (runRufus.sh and Overlap.shorter.sh up to
-RUFUS.interpret's inputs).
+"""The RUFUS trio pipeline on one CUDA device: count -> model -> subtract
+-> filter -> align reads -> assemble -> align contigs and pull genotype
+counts -> interpret -> polish (runRufus.sh and Overlap.shorter.sh), from
+BAM, CRAM or FASTQ to <name>.FINAL.vcf, its bgzipped .vcf.gz and .tbi.
 
 Every stage writes its outputs into the workdir under the reference's file
 names and is skipped when they already exist (runRufus.sh:844-951 resume
@@ -19,9 +19,13 @@ Read and contig alignment run the seed-and-extend aligner (``align/``)
 with every batched candidate DP and its traceback on the device (the
 ``sw_batch`` CUDA kernel, one launch a group); assembly is host Python
 (``assembly/``); the genotype pulls search the resident sample tables on
-the device (``ops/query.py``). Interpret and
-polish, the memory model and multi-GPU are not ported yet: ``run`` refuses
-them and names the ROADMAP.md entry that will bring each.
+the device (``ops/query.py``). Interpret (``interpret/``) and polish
+(``polish.py``) are host Python, as in the JAX package. Besides ``run``
+(stopping after cfg.stop_after, or the full run), the entry points are
+``run_longread`` (the PacBio path) and ``regenotype`` (new control tables
+against the contigs in the workdir). The memory model and multi-GPU are
+not ported yet: the pipeline refuses them and names the ROADMAP.md entry
+that will bring each.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import numpy as np
 import torch
 
 from .config import RufusConfig
+from .polish import polish_vcf
 from ..align import Aligner, RefIndex
 from ..align import sam as rsam
 from ..align.aligner import MOB_SCORING, build_flat_index, open_flat_index
@@ -43,21 +48,33 @@ from ..assembly import annotate
 from ..assembly.overlap_rounds import overlap_region, overlap_round
 from ..assembly.overlap_sam import overlap_sam
 from ..convert import hashlist_keys_to_int64, table_from_numpy
-from ..io import (bwaindex, cram, fasta, fastq, hashlist as hio, native,
-                  progress)
+from ..interpret import run_interpret
+from ..io import (bgzf, bwaindex, cram, fasta, fastq, hashlist as hio,
+                  native, progress)
 from ..models import modeldist
 from ..ops import codec, count
 from ..ops.cuda_filter import hashlist_index
 from ..ops.filter import filter_pairs, filter_single
 from ..ops.query import query_counts
 from ..ops.table import DeviceKmerTable, count_step, subtract_step
+from ..utils import shims
 from ..utils.trace import StageTimer, Throughput
 
 FASTQ_EXT = (".fastq", ".fq", ".fastq.gz", ".fq.gz")
-STOP_STAGES = ("jhash", "hashlist", "filter", "contig_align")
+STOP_STAGES = ("", "jhash", "hashlist", "filter", "contig_align")  # "": all
 MAX_READ = 1024  # the filter cuts reads only beyond this length
 
 _RefId = collections.namedtuple("_RefId", "ref_id")
+
+
+class _RefWrap:
+    """The reference as interpret reads it: contig_array(name)."""
+
+    def __init__(self, contigs):
+        self.seqs = contigs
+
+    def contig_array(self, name):
+        return self.seqs[name]
 
 
 @dataclass
@@ -133,24 +150,32 @@ class RufusPipeline:
         self._ref_contigs = None
         self._ref_index = None
 
-    def check_supported(self):
-        """Raise NotImplementedError for what this slice does not run, and
-        ValueError for a filter that has no pairs to read."""
+    def check_supported(self, entry: str = "run"):
+        """Raise NotImplementedError for what the port does not run yet (the
+        memory model, multi-GPU), and ValueError for an unknown stop stage,
+        a run that aligns without a reference FASTA, or a filter that has
+        no reads to read. `entry` is "run", "filter_single" (run_longread
+        with no contigs FASTA) or "align" (run_longread with one, and
+        regenotype)."""
         cfg = self.cfg
         codec.check_k(cfg.k)
         if cfg.stop_after not in STOP_STAGES:
-            _not_ported(f"stop_after={cfg.stop_after!r} (the stages after "
-                        "contig alignment)", "interpret, polish")
+            raise ValueError(f"unknown stop_after {cfg.stop_after!r}: one of "
+                             f"{STOP_STAGES}")
         if cfg.count_passes > 1 or cfg.spill_tables == "on":
             _not_ported("count_passes > 1 / spill_tables='on'",
                         "memory model")
         if cfg.sharded == "on":
             _not_ported("sharded='on'", "multi-GPU")
-        if cfg.stop_after == "contig_align" and not cfg.ref:
+        aligns = entry != "run" or cfg.stop_after in ("contig_align", "")
+        if aligns and not cfg.ref:
             raise ValueError("read and contig alignment need a reference "
                              "FASTA (ref, -r)")
-        if cfg.stop_after in ("filter", "contig_align") and (
-                cfg.single_end or not (cfg.fastq_a and cfg.fastq_b)) and (
+        single = entry == "filter_single" or cfg.single_end or not (
+            cfg.fastq_a and cfg.fastq_b)
+        filters = entry == "filter_single" or (
+            entry == "run" and cfg.stop_after not in ("jhash", "hashlist"))
+        if filters and single and (
                 "," in cfg.subject or input_kind(cfg.subject) == "fastq"):
             raise ValueError(
                 "the filter reads its reads from -q1/-q2 FASTQ (paired) or "
@@ -758,6 +783,7 @@ class RufusPipeline:
             f = line.split("\t")
             f[0] = f"{f[0]}:SA={n_sa}"
             stdin_lines.append("\t".join(f))
+        rec["sam_lines"] = len(stdin_lines)
         sam_out = cfg.wpath(ns + ".overlap.hashcount.fastq.sam")
         rsam.write_sam(sam_out, alns, self.ref_index())
         rsam.write_bam(cfg.wpath(ns + ".overlap.hashcount.fastq.bam"),
@@ -862,14 +888,134 @@ class RufusPipeline:
             "rep_ref": rep_ref,
         }
 
-    # -- the slice ----------------------------------------------------------
+    # -- stage 8: interpret -------------------------------------------------
+
+    def _interpret(self, inputs, hl_path: str, **kw) -> str:
+        """RUFUS.interpret on stage_contig_align's outputs: writes the
+        .vcf, its .vcf.bed and the SV side files in Intermediates/; returns
+        the .vcf path."""
+        cfg = self.cfg
+        return run_interpret(
+            inputs["stdin_lines"], _RefWrap(self.ref_contigs()),
+            cfg.wpath(cfg.subject_stub + ".Jhash.histo.7.7.dist"), hl_path,
+            cfg.wpath(cfg.name_stub + ".overlap.hashcount.fastq.bam"),
+            inputs["par_alt"], inputs["par_ref"], inputs["subj_alt"],
+            inputs["subj_ref"], inputs["rep_ref"], inputs["mob_sam"],
+            max_variant_size=cfg.max_allele_size, **kw)
+
+    def stage_interpret(self, inputs) -> str:
+        """Interpret with the short-read settings (-mQ 10), on the first
+        `<subject>.k<k>_c*.HashList` of the workdir."""
+        cfg = self.cfg
+        hl = [p for p in os.listdir(cfg.workdir)
+              if p.startswith(cfg.subject_stub + f".k{cfg.k}_c")
+              and p.endswith(".HashList")]
+        return self._interpret(inputs, cfg.wpath(sorted(hl)[0]),
+                               min_map_qual=10)
+
+    # -- stage 9: polish ----------------------------------------------------
+
+    def final_path(self) -> str:
+        return self.cfg.wpath(self.cfg.name_stub
+                              + ".overlap.hashcount.fastq.bam.FINAL.vcf")
+
+    def stage_polish(self, vcf_path: str) -> str:
+        """Sort, keep the main chromosomes' PASS (or, with cfg.mosaic,
+        Mosaic) rows, collapse duplicates (runRufus.sh:1113-1125) into
+        FINAL.vcf; returns its path."""
+        return polish_vcf(vcf_path, self.final_path(),
+                          with_mosaic=self.cfg.mosaic)
+
+    # -- long-read (PacBio HiFi) path ---------------------------------------
+
+    def stage_assemble_longread(self, contigs_fasta: str, hl_path: str):
+        """Long-read contigs -> the annotated hashcount FASTQ
+        (Overlap.pacbio.sh:75-90): no Overlap rounds; the contigs of an
+        external assembler (a FASTA through the multi-line FASTA shim, or
+        a .fq/.fastq read directly), or the accurate HiFi reads themselves,
+        go straight to AnnotateOverlap."""
+        cfg = self.cfg
+        ns = cfg.name_stub
+        out_path = cfg.wpath(ns + ".overlap.hashcount.fastq")
+        if os.path.exists(out_path):
+            self._log("skipping long-read annotate")
+            return out_path
+        if contigs_fasta.endswith((".fq", ".fastq")):
+            fq = list(fastq.read_fastq(contigs_fasta))
+        else:
+            with open(contigs_fasta) as fh:
+                fq_lines = list(shims.multiline_fasta_to_singleline_fastq(fh))
+            fq = [(fq_lines[i][1:], fq_lines[i + 1], fq_lines[i + 3])
+                  for i in range(0, len(fq_lines), 4)]
+        strs, cnts = hio.read_hashlist(hl_path)
+        ann, side = annotate.annotate_overlap(list(zip(strs, cnts)), fq, cfg.k)
+        if not ann:
+            raise RuntimeError("long-read assembly produced no contigs")
+        with open(out_path, "w") as f:
+            for n, s, q in ann:
+                f.write(f"@{n}\n{s}\n+\n{q}\n")
+        with open(cfg.wpath("TempOverlap", ns + ".overlap.asembly.hash.fastq"),
+                  "w") as f:
+            for line in side:
+                f.write(line + "\n")
+        return out_path
+
+    def run_longread(self, contigs_fasta: str | None = None) -> str:
+        """The long-read pipeline: count, model and subtract as usual, then
+        the PacBio assembly and interpret (-mQ 1 -as 1000,
+        Overlap.pacbio.sh:243-256) and polish. With no contigs FASTA the
+        single-end filter's reads of the BAM/CRAM subject are the contigs.
+        stop_after and single_end are not read. Returns the FINAL.vcf
+        path."""
+        self.check_supported("filter_single" if contigs_fasta is None
+                             else "align")
+        tables = self.stage_count()
+        mutant_min_cov, max_hash_depth = self.stage_model()
+        hl_path = self.stage_hashlist(tables, mutant_min_cov, max_hash_depth)
+        if contigs_fasta is None:
+            contigs_fasta = self.stage_filter_single(hl_path)
+        contigs_path = self.stage_assemble_longread(contigs_fasta, hl_path)
+        inputs = self.stage_contig_align(contigs_path, tables)
+        vcf_path = self._interpret(inputs, hl_path, min_map_qual=1,
+                                   seg_threshold=1000)
+        return self.stage_polish(vcf_path)
+
+    # -- regenotype ---------------------------------------------------------
+
+    def _load_table(self, stub: str):
+        """A sample's saved count table (.table.npz)."""
+        if os.path.exists(self.cfg.wpath(stub + ".table.flat")):
+            _not_ported(f"the flat count table of {stub}", "memory model")
+        return count.KmerTable.load(self.cfg.wpath(stub + ".table.npz"))
+
+    def regenotype(self, control_tables: list) -> str:
+        """Re-genotype the contigs already in the workdir against new
+        control tables (scripts/Genotype.sh): contig alignment and the
+        pulls, interpret and polish. A sample whose table is resident on
+        the device (counted by this pipeline) is pulled from it rather
+        than from the table handed in, as in the JAX package. Returns the
+        FINAL.vcf path."""
+        self.check_supported("align")
+        cfg = self.cfg
+        contigs_path = cfg.wpath(cfg.name_stub + ".overlap.hashcount.fastq")
+        if not os.path.exists(contigs_path):
+            raise FileNotFoundError("no assembled contigs to regenotype; "
+                                    "run the pipeline first")
+        tables = {"subject": self._load_table(cfg.subject_stub),
+                  "controls": control_tables}
+        inputs = self.stage_contig_align(contigs_path, tables)
+        return self.stage_polish(self.stage_interpret(inputs))
+
+    # -- the full run -------------------------------------------------------
 
     def run(self):
         """count -> model -> subtract -> filter -> align_reads -> assemble
-        -> contig_align, stopping after cfg.stop_after. Returns "" (jhash),
-        the HashList path (hashlist), the Mate1 (single_end:
-        Mutations.fastq) path (filter) or interpret's inputs, the dict of
-        stage_contig_align (contig_align)."""
+        -> contig_align -> interpret -> polish, stopping after
+        cfg.stop_after. Returns "" (jhash), the HashList path (hashlist),
+        the Mate1 (single_end: Mutations.fastq) path (filter), interpret's
+        inputs, the dict of stage_contig_align (contig_align), or, for the
+        full run (""), the FINAL.vcf path, beside which it writes
+        FINAL.vcf.gz and its .tbi."""
         cfg = self.cfg
         self.check_supported()
         t = self.trace
@@ -898,5 +1044,47 @@ class RufusPipeline:
             contigs_path = self.stage_assemble(sam_path, hl_path, rec)
         with t.stage("contig_align", device=str(self.device)) as rec:
             inputs = self.stage_contig_align(contigs_path, tables, rec)
+        if cfg.stop_after == "contig_align":
+            self._log(t.summary())
+            return inputs
+        with t.stage("interpret"):
+            vcf_path = self.stage_interpret(inputs)
+        with t.stage("polish"):
+            final = self.stage_polish(vcf_path)
+            # bgzip + tabix (runRufus.sh:1127-1128); the plain file stays
+            bgzf.bgzip_tabix_vcf(final, keep_plain=True)
+        if cfg.clean:
+            self.clean()
+        self._log(f"FINAL VCF: {final}")
         self._log(t.summary())
-        return inputs
+        return final
+
+    def clean(self) -> int:
+        """-CLEAN: remove the run's intermediates (runRufus.sh:351-356's rm
+        list under the pipeline's file names). The FINAL VCFs, the trace
+        and the model stay. Returns how many files went."""
+        import glob
+
+        patterns = [
+            "*.generator.table.npz", "*.generator.table.flat",
+            "*.generator.Jhash.histo",
+            "*.generator.Jhash.histo.7.7.prob", "*.generator.Jelly.chr",
+            "*.generator.filter.chr", "*.generator.k*_c*.HashList",
+            "*.generator.Mutations.Mate1.fastq",
+            "*.generator.Mutations.Mate2.fastq",
+            "*.generator.Mutations.fastq",
+            "*.generator.Mutations.fastq.sam",
+            "*.generator.Mutations.fastq.FULL.sam",
+            "*.generator.V2.overlap.fastq", "*.generator.V2.overlap.fastqd",
+            "*.generator.V2.overlap.hashcount.fastq",
+            "*.generator.V2.overlap.hashcount.fastq.sam",
+            "*.generator.V2.overlap.hashcount.fastq.bam.vcf",
+            "*.generator.V2.overlap.hashcount.fastq.bam.vcf.bed",
+        ]
+        removed = 0
+        for pat in patterns:
+            for p in glob.glob(self.cfg.wpath(pat)):
+                os.remove(p)
+                removed += 1
+        self._log(f"clean: removed {removed} intermediates")
+        return removed

@@ -552,3 +552,62 @@ def test_contig_slice_on_card_equals_slice_on_cpu(tmp_path, single_end):
         else:
             assert (outs["cuda"] / n).read_bytes() == \
                 (outs["cpu"] / n).read_bytes(), n
+
+
+@pytest.mark.parametrize("single_end", [False, True])
+def test_full_run_on_card_equals_full_run_on_cpu(tmp_path, monkeypatch,
+                                                 single_end):
+    """The trio to FINAL.vcf, .vcf.gz and .tbi (paired from FASTQ, single-end
+    from the child BAM; reference contig "1", mosaic rows kept) on the card
+    and on the CPU: every file and the returned path. The VCF header holds
+    the workdir's path and the interpret date, so both runs use one
+    directory in turn and the date is pinned."""
+    import types
+
+    import rufus_tpu_torch.interpret.driver as interpret_driver
+
+    _card()
+    monkeypatch.setattr(interpret_driver, "time",
+                        types.SimpleNamespace(time=lambda: 1700000000))
+    data = synthetic.write_trio(str(tmp_path / "fastq"), genome_bp=20_000,
+                                coverage=30, n_denovo=4, seed=3)
+    ref = tmp_path / "ref.fa"
+    ref.write_text(">1\n" + data["genome"].tobytes().decode() + "\n")
+    if single_end:
+        bams = synthetic.write_trio_bams(data, str(tmp_path / "bam"), seed=3)
+        kw = dict(subject=bams["child"],
+                  controls=[bams["mother"], bams["father"]], single_end=True)
+    else:
+        c, m, f = data["child"], data["mother"], data["father"]
+        kw = dict(subject=",".join(c), controls=[",".join(m), ",".join(f)],
+                  fastq_a=c[0], fastq_b=c[1])
+    work = tmp_path / "work"
+    outs, finals = {}, {}
+    for device in ("cuda", "cpu"):
+        before = cuda_sw.sw_ragged.launches
+        finals[device] = RufusPipeline(RufusConfig(
+            k=25, workdir=str(work), exome=True, min_cov=5, ref=str(ref),
+            mosaic=True, batch_size=1024, device=device, **kw)).run()
+        assert (cuda_sw.sw_ragged.launches > before) == (device == "cuda")
+        outs[device] = tmp_path / device
+        os.rename(work, outs[device])
+    assert finals["cuda"] == finals["cpu"]
+    names = sorted(os.path.relpath(os.path.join(r, n), outs["cpu"])
+                   for r, _, ns in os.walk(outs["cpu"]) for n in ns
+                   if n != "trace.jsonl")
+    assert names == sorted(os.path.relpath(os.path.join(r, n), outs["cuda"])
+                           for r, _, ns in os.walk(outs["cuda"]) for n in ns
+                           if n != "trace.jsonl")
+    for n in names:
+        if n.endswith(".npz"):
+            za, zb = np.load(outs["cuda"] / n), np.load(outs["cpu"] / n)
+            for key in zb.files:
+                np.testing.assert_array_equal(za[key], zb[key])
+        else:
+            assert (outs["cuda"] / n).read_bytes() == \
+                (outs["cpu"] / n).read_bytes(), n
+    vcf = outs["cpu"] / os.path.basename(finals["cpu"])[:-len(".FINAL.vcf")]
+    with open(str(vcf) + ".vcf") as f:
+        assert any(not line.startswith("#") for line in f)
+    assert (outs["cpu"] / (os.path.basename(finals["cpu"]) + ".gz.tbi")
+            ).exists()

@@ -91,23 +91,29 @@ def test_slice_is_batch_size_independent(trio, jax_run, tmp_path):
 
 
 def test_unported_options_raise(trio, tmp_path):
+    """The memory model and multi-GPU raise NotImplementedError; an unknown
+    stop stage, a filter with neither -q1/-q2 nor a BAM/CRAM subject, and
+    alignment (through contig_align or the full run) without a reference
+    raise ValueError."""
     d, data = trio
-    with pytest.raises(NotImplementedError, match="interpret, polish"):
-        RufusPipeline(RufusConfig(**_kwargs(data, tmp_path, device="cpu",
-                                            stop_after=""))).run()
-    for over in ({"stop_after": ""}, {"count_passes": 2},
-                 {"spill_tables": "on"},
+    for over in ({"count_passes": 2}, {"spill_tables": "on"},
                  {"subject": "child.bam", "count_passes": 2},
-                 {"single_end": True, "sharded": "on"}, {"sharded": "on"}):
+                 {"single_end": True, "sharded": "on"}, {"sharded": "on"},
+                 {"stop_after": "", "count_passes": 2}):
         cfg = RufusConfig(**_kwargs(data, tmp_path, device="cpu", **over))
         with pytest.raises(NotImplementedError):
             RufusPipeline(cfg).run()
-    # a filter with neither -q1/-q2 nor a BAM/CRAM subject has no pairs;
-    # alignment needs a reference
-    for over in ({"k": 32}, {"fastq_a": ""}, {"stop_after": "contig_align"}):
+    for over in ({"k": 32}, {"fastq_a": ""}, {"stop_after": "contig_align"},
+                 {"stop_after": ""}, {"stop_after": "interpret"}):
         with pytest.raises(ValueError):
             RufusPipeline(RufusConfig(**_kwargs(data, tmp_path, device="cpu",
                                                 **over))).run()
+    # the long-read path with no contigs FASTA filters a BAM/CRAM subject
+    cfg = RufusConfig(**_kwargs(data, tmp_path, device="cpu",
+                                ref=str(tmp_path / "ref.fa")))
+    with pytest.raises(ValueError):
+        RufusPipeline(cfg).run_longread()
+    assert not [n for n in os.listdir(tmp_path) if n.endswith(".npz")]
 
 
 def _cli_argv(data, workdir, *extra):
@@ -131,16 +137,40 @@ def test_cli_runs_through_the_hashlist(trio, jax_run, tmp_path, monkeypatch):
 @pytest.mark.parametrize("flag", [["-L", "50"], ["--mosaic"], ["--clean"],
                                   ["--pacbio"], ["--regenotype", "t.npz"]])
 def test_cli_refuses_later_stage_flags(trio, tmp_path, monkeypatch, flag):
-    """Flags that only unported stages read are refused, not ignored."""
-    from rufus_tpu_torch.pipeline.__main__ import main
+    """The flags of the later stages, refused while those stages were not
+    ported, now reach the configuration and the entry point they name:
+    none is ignored."""
+    from rufus_tpu_torch.ops import count as pcount
+    from rufus_tpu_torch.pipeline import __main__ as cli
 
     d, data = trio
+    calls = []
+
+    class Spy(RufusPipeline):
+        def run(self):
+            calls.append(("run", self.cfg))
+
+        def run_longread(self, contigs=None):
+            calls.append(("run_longread", self.cfg, contigs))
+
+        def regenotype(self, tables):
+            calls.append(("regenotype", self.cfg, tables))
+
+    monkeypatch.setattr(cli, "RufusPipeline", Spy)
+    monkeypatch.setattr(pcount.KmerTable, "load", classmethod(
+        lambda cls, path: path))
     monkeypatch.setattr(sys, "argv", _cli_argv(data, tmp_path, "--stop-after",
                                                "filter", "-q1", data["child"][0],
                                                "-q2", data["child"][1], *flag))
-    with pytest.raises(NotImplementedError):
-        main()
-    assert not os.listdir(tmp_path)
+    cli.main()
+    (entry, cfg, *args), = calls
+    assert entry == {"--pacbio": "run_longread",
+                     "--regenotype": "regenotype"}.get(flag[0], "run")
+    assert cfg.max_allele_size == (50 if flag[0] == "-L" else 1000)
+    assert cfg.mosaic == (flag[0] == "--mosaic")
+    assert cfg.clean == (flag[0] == "--clean")
+    assert args == {"--pacbio": [None],
+                    "--regenotype": [["t.npz"]]}.get(flag[0], [])
 
 
 def test_cuda_default_raises_without_a_card(trio, tmp_path):
