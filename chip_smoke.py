@@ -46,6 +46,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
              its contigs against the parents' saved tables (.table.npz):
              its FINAL.vcf must equal the run's in every line but
              ##fileDate;
+   memory  - the memory model: first the device bytes a key of a fold
+             (fold_bytes line: a batch folded into an empty table, then a
+             slice of the next folded into that table, by
+             torch.cuda.max_memory_allocated), then, with the FASTQ run's
+             ModelDist outputs copied in and the launch counts set to 0,
+             (a) the trio through the filter with spill_tables "on" and a
+             budget 5% above the least that holds one batch, so that every
+             sample spills LSM runs that merge-sum on the card: each
+             .table.flat must hold the resident run's table, and the
+             histograms, HashList and kept pairs must equal its bytes,
+             every sample must spill >= 3 runs and the count stage's
+             device peak stay within the budget; (b) count_passes 4
+             through the count, the same tables and histograms; (c) a
+             fresh pipeline on the FASTQ run's workdir regenotypes with
+             the flat tables (the subject through _load_table, the
+             parents by load_flat; the pulls bisect the memmaps): its
+             FINAL.vcf must equal the run's but for ##fileDate. Prints
+             each sample's runs, the device peaks against the budget, the
+             count, merge, subtract and regenotype seconds, and the host
+             peak RSS; fails if a fold's measured bytes a key pass the
+             constants of ops/table.py;
 5. bam     - the same trio as coordinate-sorted aligned BAMs
              (synthetic.write_trio_bams: the FASTQ reads at their true
              positions, 0.5% of pairs unmapped, 0.1% extra secondary,
@@ -126,6 +147,7 @@ Then the kernels line, the nvidia-smi name/power-limit line, and last the
 """
 
 import argparse
+import gc
 import json
 import os
 import resource
@@ -444,6 +466,210 @@ def phase_regenotype(data, workdir):
 
 
 
+
+
+def fold_bytes(data) -> dict:
+    """Device bytes a key costs at the peak of each step of a fold, from
+    torch.cuda.max_memory_allocated on the subject's first two count
+    batches: a pending batch folded into an empty table (its encode
+    output, the sort and the raw compaction), then a 1 Mi-key slice of the
+    second batch folded into that table (the merge, the table's own bytes
+    included). The budget's constants (ops/table.py) must not be below
+    them."""
+    from rufus_tpu_torch.io import fastq
+    from rufus_tpu_torch.ops import codec, table
+
+    dev = torch.device("cuda")
+    batches = fastq.fastq_batches(data["child"][0], BATCH, READ_PAD)
+    r1 = torch.from_numpy(next(batches).seq).to(dev)
+    r2 = torch.from_numpy(next(batches).seq).to(dev)
+    small = table.count_step(r2, K)[: 1 << 20].clone()
+    u_small = int((torch.unique(small) != codec.SENTINEL).sum())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = table.DeviceKmerTable(K, dev)
+    t.fold_batch(table.count_step(r1, K))
+    n_pending = BATCH * (READ_PAD - K + 1)
+    t.flush()
+    torch.cuda.synchronize()
+    pending = (torch.cuda.max_memory_allocated(dev) - base) / n_pending
+    n_table = t.keys.numel()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t.fold_batch(small)
+    del small
+    t.flush()
+    torch.cuda.synchronize()
+    merge = ((torch.cuda.max_memory_allocated(dev) - base)
+             / (n_table + u_small))
+    t.release()
+    info = {"phase": "fold_bytes", "pending_keys": n_pending,
+            "table_keys": n_table, "merge_pending_unique": u_small,
+            "pending_bytes_per_key": pending, "merge_bytes_per_key": merge,
+            "constants": {"PENDING_BYTES": table.PENDING_BYTES,
+                          "MERGE_BYTES": table.MERGE_BYTES}}
+    emit(info)
+    return info
+
+
+def phase_memory(data, work, fastq_wd, fastq_info):
+    """The memory model on the card (see the module's docstring): (a) the
+    trio through the filter with spilled tables under a budget that makes
+    every sample spill LSM runs, (b) a four-pass count, (c) a regenotype on
+    flat tables; every output held to the resident FASTQ run's."""
+    import numpy as np
+
+    from rufus_tpu_torch.ops import count, cuda_sw, table
+    from rufus_tpu_torch.pipeline import RufusPipeline
+
+    # earlier phases' pipelines may linger in reference cycles, their
+    # tables still on the card: collect them, so the budget's gate reads
+    # the count's own bytes
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    consts = fold_bytes(data)
+    stub = {s: os.path.basename(data[s][0]) + ".generator"
+            for s in ("child", "mother", "father")}
+    # the least budget whose pending cap holds one batch, and 5% more
+    per_key = max(table.PENDING_BYTES + table.TABLE_BYTES,
+                  2 * table.MERGE_BYTES)
+    budget = int(1.05 * per_key * BATCH * (READ_PAD - K + 1))
+    read = lambda p: open(p, "rb").read()  # noqa: E731
+
+    def same_tables(wd, what):
+        for s, st in stub.items():
+            flat = count.KmerTable.load_flat(os.path.join(wd,
+                                                          st + ".table.flat"))
+            z = np.load(os.path.join(fastq_wd, st + ".table.npz"))
+            if not (np.array_equal(flat.keys, z["keys"])
+                    and np.array_equal(flat.counts, z["counts"])):
+                raise AssertionError(f"{what}: {s}'s flat table differs from "
+                                     "the resident run's")
+            if read(os.path.join(wd, st + ".Jhash.histo")) != read(
+                    os.path.join(fastq_wd, st + ".Jhash.histo")):
+                raise AssertionError(f"{what}: {s}'s histogram differs")
+
+    def stages_of(pipe):
+        return {s["stage"]: s for s in pipe.trace.stages}
+
+    # (a) LSM runs and spilled tables, through the filter
+    wd = os.path.join(work, "mem_lsm")
+    os.makedirs(wd)
+    for ext in (".Jhash.histo.7.7.model", ".Jhash.histo.7.7.dist"):
+        shutil.copy(os.path.join(fastq_wd, stub["child"] + ext), wd)
+    kernels = _kernels()
+    for fn in kernels.values():
+        fn.launches = 0
+    cfg = slice_config(data, wd)
+    cfg.stop_after, cfg.spill_tables = "filter", "on"
+    cfg.hbm_budget_gb = budget / 2**30
+    pipe = RufusPipeline(cfg)
+    t0 = time.perf_counter()
+    m1 = pipe.run()
+    torch.cuda.synchronize()
+    lsm_wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    st = stages_of(pipe)
+    lsm = {"wall_s": lsm_wall, "budget_bytes": budget,
+           "device_allocated_before_bytes": base,
+           "lsm_runs": st["count"]["lsm_runs"],
+           "count_device_peak_bytes": st["count"]["device_peak_bytes"],
+           "count_wall_s": st["count"]["wall_s"],
+           "merge_s": st["count"]["merge_s"],
+           "folds": st["count"]["folds"],
+           "subtract_wall_s": st["hashlist"]["wall_s"],
+           "subtract_path": st["hashlist"]["path"],
+           "subtract_device_peak_bytes": st["hashlist"]["device_peak_bytes"],
+           "filter_wall_s": st["filter"]["wall_s"],
+           "unique_kmers": st["count"]["unique_kmers"],
+           "count_mem": st["count"]["mem"], "launches": launches,
+           "resident_count_wall_s": fastq_info["stage_wall_s"]["count"],
+           "resident_count_device_peak_bytes":
+               fastq_info["device_peak_bytes"]["count"]}
+    emit({"phase": "memory_lsm", **lsm})
+    same_tables(wd, "LSM run")
+    hl = [n for n in os.listdir(fastq_wd) if n.endswith(".HashList")][0]
+    if read(os.path.join(wd, hl)) != read(os.path.join(fastq_wd, hl)):
+        raise AssertionError("the spilled run's HashList differs")
+    for mate in (m1, m1.replace("Mate1", "Mate2")):
+        if read(mate) != read(os.path.join(fastq_wd,
+                                           os.path.basename(mate))):
+            raise AssertionError(f"the spilled run's {os.path.basename(mate)}"
+                                 " differs")
+    if min(lsm["lsm_runs"].get(s, 0) for s in stub.values()) < 3:
+        raise AssertionError(f"a sample spilled fewer than 3 LSM runs: "
+                             f"{lsm['lsm_runs']}")
+    if lsm["count_device_peak_bytes"] - base > budget:
+        raise AssertionError("the count stage passed its device budget")
+    if lsm["subtract_path"] != "host-stream" or min(launches.values()) <= 0:
+        raise AssertionError(f"the spilled run took the resident path or "
+                             f"left a kernel unlaunched: {launches}")
+
+    # (b) four passes
+    wd_p = os.path.join(work, "mem_passes")
+    cfg = slice_config(data, wd_p)
+    cfg.stop_after, cfg.count_passes = "jhash", 4
+    pipe = RufusPipeline(cfg)
+    pipe.run()
+    torch.cuda.synchronize()
+    st = stages_of(pipe)
+    passes = {"count_wall_s": st["count"]["wall_s"],
+              "count_device_peak_bytes": st["count"]["device_peak_bytes"],
+              "folds": st["count"]["folds"],
+              "unique_kmers": st["count"]["unique_kmers"]}
+    emit({"phase": "memory_passes", "passes": 4, **passes})
+    same_tables(wd_p, "4-pass count")
+
+    # (c) regenotype on flat tables, in the FASTQ run's workdir (the VCF
+    # names it): the subject through _load_table, the parents by load_flat
+    flats = [os.path.join(fastq_wd, s + ".table.flat") for s in stub.values()]
+    for s in stub.values():
+        shutil.copy(os.path.join(wd, s + ".table.flat"), fastq_wd)
+    try:
+        regen = RufusPipeline(slice_config(data, fastq_wd))
+        undated = lambda p: [line for line in open(p)  # noqa: E731
+                             if not line.startswith("##fileDate=")]
+        before = undated(regen.final_path())
+        parents = [count.KmerTable.load_flat(os.path.join(
+            fastq_wd, stub[s] + ".table.flat")) for s in ("mother", "father")]
+        if not regen._load_table(stub["child"]).mapped:
+            raise AssertionError("the subject's table did not open flat")
+        cuda_sw.sw_ragged.launches = 0
+        t0 = time.perf_counter()
+        final = regen.regenotype(parents)
+        torch.cuda.synchronize()
+        regen_wall = time.perf_counter() - t0
+        after = undated(final)
+    finally:
+        for f in flats:
+            if os.path.exists(f):
+                os.remove(f)
+    info = {"phase": "memory", "budget_bytes": budget,
+            "fold_bytes": {k: consts[k] for k in ("pending_bytes_per_key",
+                                                  "merge_bytes_per_key")},
+            "lsm_runs": lsm["lsm_runs"],
+            "count_device_peak_bytes": lsm["count_device_peak_bytes"],
+            "count_wall_s": lsm["count_wall_s"], "merge_s": lsm["merge_s"],
+            "subtract_wall_s": lsm["subtract_wall_s"],
+            "passes_count_wall_s": passes["count_wall_s"],
+            "passes_count_device_peak_bytes":
+                passes["count_device_peak_bytes"],
+            "regenotype_wall_s": regen_wall,
+            "regenotype_sw_launches": cuda_sw.sw_ragged.launches,
+            "regenotype_equal": after == before,
+            "host_peak_rss_bytes": peak_rss()}
+    emit(info)
+    if (consts["pending_bytes_per_key"] > table.PENDING_BYTES
+            or consts["merge_bytes_per_key"] > table.MERGE_BYTES):
+        raise AssertionError("a fold takes more device bytes a key than the "
+                             "budget's constants in ops/table.py reckon")
+    if after != before:
+        raise AssertionError("the regenotype on flat tables gave another "
+                             "FINAL.vcf than the run's")
+    if cuda_sw.sw_ragged.launches <= 0:
+        raise AssertionError("the regenotype on flat tables launched no "
+                             "sw_batch")
+    return info
 
 
 def peak_rss() -> int:
@@ -826,8 +1052,8 @@ def phase_kernels(data, hl_path, launches, seed, contig_pair,
         "shape": [B, L], "bytes": B * L + 8 * B * W})
 
     # compact_runs, raw: one real pending buffer (the subject's first fold
-    # input); counted: what the second fold merges (merge_sorted's input),
-    # the first buffer's table with the next buffer's unique keys
+    # input); counted: what the second fold merges, the first buffer's
+    # table with the next buffer's unique keys
     buffers = pending_buffers(data)
     raw = next(buffers)
     pending_sort_ms = time_ms(lambda: torch.sort(raw), 3)
@@ -1032,6 +1258,7 @@ def main():
                           args.seed)
         sl, hl_path = phase_slice(data, os.path.join(work, "run"))
         phase_regenotype(data, os.path.join(work, "run"))
+        phase_memory(data, work, os.path.join(work, "run"), sl)
         phase_bam(data, work, os.path.join(work, "run"), sl, args.seed)
         phase_pulls(os.path.join(work, "run"))
         reads = max(sl["dp_launches"]["align_reads"],

@@ -7,6 +7,8 @@ shard owning each key, bisects there and routes the answers back, with a
 padded query capacity and an overflow retry. On one card the tables are
 whole and sorted, so a query is one ``torch.searchsorted`` a table and a
 gather of the counts behind a match check: no routing, padding or retry.
+A table spilled to a flat memmap is bisected on the host instead, as the
+JAX package's host pull does (driver.py:1344-1350 there).
 """
 
 from __future__ import annotations
@@ -14,19 +16,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import codec
+from . import codec, count
 
 
 def query_counts(tables: list, kmers_u64: np.ndarray) -> np.ndarray:
     """Counts of `kmers_u64` (canonical uint64 keys, the host layout) in
-    every `DeviceKmerTable` of `tables`, as a (len(tables), len(kmers))
-    int64 host array."""
+    every table of `tables`, as a (len(tables), len(kmers)) int64 host
+    array. A `DeviceKmerTable` is searched on its device; a host
+    `KmerTable` (a memmapped flat table) is bisected on the host, so only
+    the pages its searches touch are read."""
     out = np.zeros((len(tables), len(kmers_u64)), np.int64)
-    if not len(kmers_u64) or not tables:
+    if not len(kmers_u64):
         return out
-    q = torch.from_numpy(codec.keys_u64_to_i64(kmers_u64)).to(
-        tables[0].device)
+    q = None
     for t, table in enumerate(tables):
+        if isinstance(table, count.KmerTable):
+            out[t] = table.query(kmers_u64)
+            continue
+        if q is None:
+            q = torch.from_numpy(codec.keys_u64_to_i64(kmers_u64)).to(
+                table.device)
         table.flush()
         keys = table.keys
         if keys.numel() == 0:

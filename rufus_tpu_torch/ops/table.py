@@ -8,14 +8,34 @@ keys and counts: each fold sizes the new table from the compaction
 kernel's unique count, so there is no capacity, no growth and no retry.
 The contents do not depend on that choice, so the outputs equal the JAX
 package's.
+
+Under a device memory budget (the JAX package's ``max_capacity`` and
+``overflow_spill``) the table reckons the bytes each fold allocates, with
+per-key constants measured on the H100, and hands its committed table to a
+spill callback (a sorted flat run on the host) before a fold would pass
+the budget; counting then goes on from an empty table.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import codec, count
 from .cuda_count import encode_canon
+
+# Device bytes a key costs at the peak of a fold, from
+# torch.cuda.max_memory_allocated around folds on the H100 (chip_smoke.py's
+# memory phase; PERF.md): TABLE_BYTES a committed key (key and count);
+# PENDING_BYTES a pending raw key while its buffer is sorted and compacted
+# (the buffered batches, their concatenation, torch.sort's values, indices
+# and scratch, compact_runs' 12-byte stage); MERGE_BYTES a key of the table
+# plus the pending buffer's unique keys while the two merge (the
+# concatenated keys and counts, the stable sort's values, indices and
+# scratch, the gathered counts and compact_runs' output).
+TABLE_BYTES, PENDING_BYTES, MERGE_BYTES = 16, 52, 64
+# Raw keys the pending buffer takes before a fold, without a budget.
+PENDING_KEYS = 96 << 20
 
 
 def count_step(reads: torch.Tensor, k: int) -> torch.Tensor:
@@ -30,9 +50,17 @@ class DeviceKmerTable:
 
     Batches are buffered until `pending_budget` keys are pending, then
     folded at once: sort + compact the pending keys, merge the result with
-    the table, compact again."""
+    the table, compact again.
 
-    def __init__(self, k: int, device, pending_budget: int = 96 << 20):
+    With `budget` (bytes) and `spill` (a callback that writes the committed
+    table out and calls `reset`), a fold never allocates more than the
+    budget by the per-key constants above: the pending buffer is capped at
+    `pending_cap` keys, and the committed table is spilled before a fold
+    whose sort or merge would pass the budget. A batch larger than the cap
+    raises."""
+
+    def __init__(self, k: int, device, pending_budget: int = PENDING_KEYS,
+                 budget: int | None = None, spill=None):
         self.k = codec.check_k(k)
         self.device = torch.device(device)
         self.keys = torch.empty(0, dtype=torch.int64, device=self.device)
@@ -41,33 +69,76 @@ class DeviceKmerTable:
         self._pending_els = 0
         self.pending_budget = pending_budget
         self.folds = 0
+        self.budget, self.spill, self.pending_cap = budget, spill, None
+        self.spills = 0
+        if spill is not None:
+            # one pending buffer must fit beside a table of its own size,
+            # and two of its unique sets must merge within the budget
+            self.pending_cap = budget // max(PENDING_BYTES + TABLE_BYTES,
+                                             2 * MERGE_BYTES)
+            self.pending_budget = min(pending_budget, self.pending_cap)
 
     def fold_batch(self, batch_keys: torch.Tensor, batch_counts=None):
         """Queue raw count-1 keys (batch_counts=None) or (keys, counts);
         fold when the pending buffer reaches its budget."""
+        n = batch_keys.numel()
+        if self.pending_cap is not None:
+            if n > self.pending_cap:
+                raise RuntimeError(
+                    f"a batch of {n} keys passes the device budget of "
+                    f"{self.budget} bytes alone (at most {self.pending_cap} "
+                    "pending keys); lower batch_size or raise hbm_budget_gb")
+            if self._pending_els + n > self.pending_cap:
+                self.flush()
         self._pending.append((batch_keys.reshape(-1), batch_counts))
-        self._pending_els += batch_keys.numel()
+        self._pending_els += n
         if self._pending_els >= self.pending_budget:
             self.flush()
 
+    def _over_budget(self, nbytes: int) -> bool:
+        """Whether a fold step of `nbytes` would pass the budget with a
+        committed table to spill."""
+        return (self.spill is not None and self.keys.numel() > 0
+                and nbytes > self.budget)
+
+    def _spill(self):
+        """Hand the committed table to the spill callback, the pending
+        batches held aside so that its flush finds none."""
+        pending, n = self._pending, self._pending_els
+        self._pending, self._pending_els = [], 0
+        self.spill(self)
+        self._pending, self._pending_els = pending, n
+        self.spills += 1
+
     def flush(self):
-        """Fold every pending batch into the table."""
+        """Fold every pending batch into the table. Each step drops its
+        inputs as soon as it is done with them: the budget's constants
+        count what stays."""
         if not self._pending:
             return
-        keys = torch.cat([k for k, _ in self._pending])
-        if all(c is None for _, c in self._pending):
+        if self._over_budget(TABLE_BYTES * self.keys.numel()
+                             + PENDING_BYTES * self._pending_els):
+            self._spill()
+        pending, self._pending, self._pending_els = self._pending, [], 0
+        parts_k = [k for k, _ in pending]
+        if all(c is None for _, c in pending):
+            del pending
+            keys = torch.cat(parts_k)
+            del parts_k
             pk, pc = count.count_batch(keys)
+            del keys
         else:
-            cnts = torch.cat([torch.ones_like(k) if c is None
-                              else c.reshape(-1).to(torch.int64)
-                              for k, c in self._pending])
-            s, order = torch.sort(keys, stable=True)
-            pk, pc = count.compact_runs(s, cnts[order])
-        self._pending = []
-        self._pending_els = 0
-        del keys
+            parts_c = [torch.ones_like(k) if c is None
+                       else c.reshape(-1).to(torch.int64) for k, c in pending]
+            del pending
+            pk, pc = count.merge_sum(parts_k, parts_c)
+        if self._over_budget(MERGE_BYTES * (self.keys.numel() + pk.numel())):
+            self._spill()
         if self.keys.numel():
-            pk, pc = count.merge_sorted(self.keys, self.counts, pk, pc)
+            parts_k, parts_c = [self.keys, pk], [self.counts, pc]
+            self.keys = self.counts = None
+            del pk, pc
+            pk, pc = count.merge_sum(parts_k, parts_c)
         self.keys, self.counts = pk, pc
         self.folds += 1
 
@@ -85,6 +156,25 @@ class DeviceKmerTable:
         return count.KmerTable(self.k,
                                codec.keys_i64_to_u64(self.keys.cpu().numpy()),
                                self.counts.cpu().numpy())
+
+    def to_flat(self, path: str, chunk: int = 1 << 25) -> count.KmerTable:
+        """Write the table in the flat layout (``KmerTable.save_flat``'s)
+        through chunked device-to-host slices, O(chunk) host memory; returns
+        the memmapped KmerTable."""
+        self.flush()
+        n = self.keys.numel()
+        with count.atomic_write(path) as f:
+            count.write_flat_header(f, self.k, n)
+            for plane, dtype in ((self.keys, "<u8"), (self.counts, "<i8")):
+                for off in range(0, n, chunk):
+                    plane[off:off + chunk].cpu().numpy().astype(dtype).tofile(f)
+        return count.KmerTable.load_flat(path)
+
+    def reset(self):
+        """Empty the committed table (after a run spill); pending batches
+        stay."""
+        self.keys = self.keys.new_empty(0)
+        self.counts = self.counts.new_empty(0)
 
     def release(self):
         """Drop the device tensors."""
@@ -107,9 +197,40 @@ def subtract_step(subject: DeviceKmerTable, controls: list, merge_min: int,
     sk, sc = subject.keys, subject.counts
     keep = (sc > 0) & (sc >= merge_min) & (sc >= min_cov) & (sc <= max_depth)
     for ctl in controls:
-        ck = ctl.keys
-        if ck.numel() == 0:
-            continue
-        idx = torch.clamp(torch.searchsorted(ck, sk), max=ck.numel() - 1)
-        keep &= ck[idx] != sk
+        keep &= count.absent_from(sk, ctl.keys)
     return sk[keep], sc[keep]
+
+
+def make_splitters(keys, n_parts: int, sample: int = 1 << 16) -> np.ndarray:
+    """Range boundaries that split the key distribution of `keys` (a key
+    tensor or array, or a list of them) into n_parts parts of about equal
+    size: (n_parts - 1,) int64 quantiles of a systematic sample, sentinels
+    left out. A copy of ``rufus_tpu/parallel/sharded.py:make_splitters`` on
+    the port's int64 keys; the parts change where keys are counted, never
+    the table."""
+    arrs = list(keys) if isinstance(keys, (list, tuple)) else [keys]
+    per = max(1, sample // max(1, len(arrs)))
+    pools = []
+    for a in arrs:
+        stride = max(1, a.shape[-1] // max(1, per))
+        a = a[..., ::stride]
+        pools.append((a.cpu().numpy() if isinstance(a, torch.Tensor)
+                      else np.asarray(a)).ravel())
+    ks = np.concatenate(pools).astype(np.int64)
+    ks = ks[ks != codec.SENTINEL]
+    if len(ks) == 0:
+        return np.linspace(0, float(codec.SENTINEL), n_parts + 1,
+                           dtype=np.float64)[1:-1].astype(np.int64)
+    m = min(sample, len(ks))
+    idx = (np.arange(m, dtype=np.int64) * len(ks)) // m
+    pool = np.sort(ks[idx])
+    q = (np.arange(1, n_parts, dtype=np.int64) * len(pool)) // n_parts
+    return pool[q]
+
+
+def select_range(keys: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """The keys in [lo, hi) (a multipass count's pass; hi <= the sentinel,
+    so sentinels drop too). The JAX package turns the others into
+    sentinels instead, which fill the pending buffer without being
+    counted."""
+    return keys[(keys >= lo) & (keys < hi)]

@@ -12,7 +12,7 @@ import argparse
 
 from ..ops import count
 from .config import RufusConfig
-from .driver import STOP_STAGES, RufusPipeline, _not_ported
+from .driver import STOP_STAGES, RufusPipeline
 
 
 def main():
@@ -91,9 +91,13 @@ def main():
     )
     pipe = RufusPipeline(cfg)
     if a.regenotype is not None:
+        # the JAX CLI's KmerTable.load: .npz tables only
         for path in a.regenotype:
             if path.endswith(".flat"):
-                _not_ported(f"the flat count table {path}", "memory model")
+                raise ValueError(
+                    f"--regenotype takes .npz count tables; {path} is a "
+                    "flat table (open it with KmerTable.load_flat and call "
+                    "RufusPipeline.regenotype)")
         out = pipe.regenotype([count.KmerTable.load(p) for p in a.regenotype])
     elif a.pacbio is not None:
         out = pipe.run_longread(a.pacbio or None)

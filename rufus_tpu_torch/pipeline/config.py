@@ -2,9 +2,8 @@
 reference: runRufus.sh:135-366 with defaults at 27, 61-69, 424-435).
 
 The fields are those of the JAX package that the pipeline reads, plus
-`device`. `count_passes`, `spill_tables` and `sharded` stay so a JAX
-configuration's values can be passed on; the driver refuses any value of
-theirs that it cannot honour."""
+`device`. `sharded` stays so a JAX configuration's value can be passed on;
+the pipeline refuses "on" (one device)."""
 
 from __future__ import annotations
 
@@ -52,8 +51,23 @@ class RufusConfig:
     saliva: bool = False  # aligned-only mutant reads for saliva samples
     # (runRufus.sh:1062-1076)
     haploid: bool = False  # ModelDist.haploid fit (ModelDist.haploid.cpp:29)
-    count_passes: int = 1  # > 1 is refused: memory model
-    spill_tables: str = "auto"  # "on" is refused: memory model
+    count_passes: int = 1  # > 1: multipass counting, pass p folding only
+    # the keys of the p-th of count_passes ascending key ranges (bounds
+    # from the first batch) and spilling a flat run; the table is their
+    # concatenation (driver.py:480-551 of the JAX package). A pass holds
+    # about 1/count_passes of the table, and its pending buffer is cut to
+    # 1/count_passes of the keys; no budget guards it.
+    spill_tables: str = "auto"  # "auto" | "on" | "off". "on": each
+    # finished table goes to a host flat memmap (.table.flat) and leaves
+    # the device, and the count's LSM guard spills sorted runs before a
+    # fold passes hbm_budget_gb (jellyfish --disk, count_main.cc:245-246).
+    # "auto": the guard on cuda, and flat tables there once the first
+    # table x the number of samples passes the budget; never on the CPU.
+    # "off": neither.
+    hbm_budget_gb: float = 64.0  # device memory (GiB) the count stage's
+    # tables and folds may take. The JAX package's 12 was for a 16 GB TPU;
+    # 64 leaves 16 of an H100's 80 GB for the CUDA context, the caching
+    # allocator's free blocks and the filter's and aligners' buffers.
     device: str = "cuda"  # torch device of every stage; "cpu" runs the
     # kernels' plain PyTorch versions (tests)
 

@@ -15,6 +15,14 @@ counting to the subtract. The filter takes pairs from -q1/-q2 FASTQ or
 from the subject BAM/CRAM (the stranded pair stream), or single-end reads
 from the subject.
 
+The memory model (the JAX package's, driver.py:278-551 there) lets a run
+count past what the device holds: under ``hbm_budget_gb`` a sample's
+count spills its committed table as sorted flat runs and merge-sums them
+at the end; ``count_passes`` counts disjoint key ranges one pass each; and
+``spill_tables`` sends finished tables to ``.table.flat`` memmaps, which
+the subtract streams through the device chunk by chunk and the genotype
+pulls bisect on the host.
+
 Read and contig alignment run the seed-and-extend aligner (``align/``)
 with every batched candidate DP and its traceback on the device (the
 ``sw_batch`` CUDA kernel, one launch a group); assembly is host Python
@@ -23,17 +31,18 @@ the device (``ops/query.py``). Interpret (``interpret/``) and polish
 (``polish.py``) are host Python, as in the JAX package. Besides ``run``
 (stopping after cfg.stop_after, or the full run), the entry points are
 ``run_longread`` (the PacBio path) and ``regenotype`` (new control tables
-against the contigs in the workdir). The memory model and multi-GPU are
-not ported yet: the pipeline refuses them and names the ROADMAP.md entry
-that will bring each.
+against the contigs in the workdir). Multi-GPU is not ported yet: the
+pipeline refuses it and names the ROADMAP.md entry that will bring it.
 """
 
 from __future__ import annotations
 
 import collections
+import gc
 import os
 import queue
 import threading
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -56,9 +65,12 @@ from ..ops import codec, count
 from ..ops.cuda_filter import hashlist_index
 from ..ops.filter import filter_pairs, filter_single
 from ..ops.query import query_counts
-from ..ops.table import DeviceKmerTable, count_step, subtract_step
+from ..ops.table import (MERGE_BYTES, DeviceKmerTable, count_step,
+                         PENDING_KEYS, make_splitters, select_range,
+                         subtract_step)
 from ..utils import shims
-from ..utils.trace import StageTimer, Throughput
+from ..utils.trace import (StageTimer, Throughput, malloc_trim,
+                           memory_attribution)
 
 FASTQ_EXT = (".fastq", ".fq", ".fastq.gz", ".fq.gz")
 STOP_STAGES = ("", "jhash", "hashlist", "filter", "contig_align")  # "": all
@@ -146,25 +158,30 @@ class RufusPipeline:
                                 device=self.device)
         self._dev_tables: dict = {}  # stub -> DeviceKmerTable (resident)
         self._reads: dict = {}  # stub -> reads counted
+        self._folds: dict = {}  # stub -> folds of its count
+        self._runs: dict = {}  # stub -> LSM runs its count spilled
+        self._merge_s: dict = {}  # stub -> seconds merging those runs
+        self._spill = None  # tables to flat memmaps: decided once
+        self._pass_bounds = None  # multipass key ranges, from the first batch
         self._filter_reads = 0  # reads (pairs) the filter stage read
         self._ref_contigs = None
         self._ref_index = None
 
     def check_supported(self, entry: str = "run"):
-        """Raise NotImplementedError for what the port does not run yet (the
-        memory model, multi-GPU), and ValueError for an unknown stop stage,
-        a run that aligns without a reference FASTA, or a filter that has
-        no reads to read. `entry` is "run", "filter_single" (run_longread
-        with no contigs FASTA) or "align" (run_longread with one, and
-        regenotype)."""
+        """Raise NotImplementedError for what the port does not run yet
+        (multi-GPU), and ValueError for an unknown stop stage or
+        spill_tables, a run that aligns without a reference FASTA, or a
+        filter that has no reads to read. `entry` is "run",
+        "filter_single" (run_longread with no contigs FASTA) or "align"
+        (run_longread with one, and regenotype)."""
         cfg = self.cfg
         codec.check_k(cfg.k)
         if cfg.stop_after not in STOP_STAGES:
             raise ValueError(f"unknown stop_after {cfg.stop_after!r}: one of "
                              f"{STOP_STAGES}")
-        if cfg.count_passes > 1 or cfg.spill_tables == "on":
-            _not_ported("count_passes > 1 / spill_tables='on'",
-                        "memory model")
+        if cfg.spill_tables not in ("auto", "on", "off"):
+            raise ValueError(f"unknown spill_tables {cfg.spill_tables!r}: "
+                             "'auto', 'on' or 'off'")
         if cfg.sharded == "on":
             _not_ported("sharded='on'", "multi-GPU")
         aligns = entry != "run" or cfg.stop_after in ("contig_align", "")
@@ -212,17 +229,34 @@ class RufusPipeline:
                 self._ref_index = RefIndex(self.ref_contigs())
         return self._ref_index
 
-    def _device_tables(self, tables) -> list:
-        """Every sample's DeviceKmerTable, subject first: the resident ones,
-        and tables resumed from disk uploaded for the caller alone, so
-        they are freed when its stage drops them."""
+    def _stubs(self) -> list:
         cfg = self.cfg
-        stubs = [cfg.subject_stub] + [cfg.control_stub(c)
-                                      for c in cfg.controls]
+        return [cfg.subject_stub] + [cfg.control_stub(c)
+                                     for c in cfg.controls]
+
+    def _pull_tables(self, tables) -> list:
+        """Every sample's table for the genotype pulls, subject first: the
+        resident DeviceKmerTable under its stub, which wins over the table
+        handed in (as in the JAX package); else a memmapped flat table as
+        it is, bisected on the host and never uploaded whole; else the
+        host table uploaded for the caller alone, freed when its stage
+        drops it."""
         hosts = [tables["subject"]] + list(tables["controls"])
         return [self._dev_tables[s] if s in self._dev_tables
-                else table_from_numpy(t.keys, t.counts, self.device, k=cfg.k)
-                for s, t in zip(stubs, hosts)]
+                else t if t.mapped
+                else table_from_numpy(t.keys, t.counts, self.device,
+                                      k=self.cfg.k)
+                for s, t in zip(self._stubs(), hosts)]
+
+    def _budget(self) -> int:
+        """hbm_budget_gb in bytes."""
+        return int(self.cfg.hbm_budget_gb * (1 << 30))
+
+    def _chunk(self, tables: int) -> int:
+        """Keys a stream over flat tables takes from each of `tables` at a
+        time: what the budget holds at MERGE_BYTES a key, at most 2**24
+        (the JAX package's chunk)."""
+        return max(1, min(1 << 24, self._budget() // (MERGE_BYTES * tables)))
 
     # -- feeding ------------------------------------------------------------
 
@@ -322,52 +356,180 @@ class RufusPipeline:
                 if seqs:
                     yield self._host_tensor(fastq.batch_reads(seqs,
                                                               pad_to=W)[0])
-        if log_part is None:
+        if log_part is None and progress_path:
             progress.write_complete(progress_path)
 
     # -- stage 1: count -----------------------------------------------------
 
     def count_sample(self, path: str, stub: str, lower: int, stream=None):
-        """Count one sample's canonical k-mers into a device-resident table
-        (jellyfish `count -C -L lower`). Outputs are reused only when the
-        previous run's progress file carries the completion sentinel."""
+        """Count one sample's canonical k-mers (jellyfish `count -C -L
+        lower`) into a device-resident table, or a flat memmap when tables
+        spill. Outputs are reused only when the previous run's progress
+        file carries the completion sentinel.
+
+        With the LSM guard (spill_tables "on", or "auto" on cuda) a fold
+        that would pass hbm_budget_gb first spills the committed table to a
+        sorted flat run; the runs are merge-summed at the end, the floor
+        applied to the final counts (jellyfish --disk,
+        count_main.cc:318-338)."""
         cfg = self.cfg
         table_path = cfg.wpath(stub + ".table.npz")
+        flat_path = cfg.wpath(stub + ".table.flat")
         histo_path = cfg.wpath(stub + ".Jhash.histo")
         progress_path = cfg.wpath(stub + ".Jelly.chr")
-        if os.path.exists(table_path) and os.path.exists(histo_path):
+        if ((os.path.exists(table_path) or os.path.exists(flat_path))
+                and os.path.exists(histo_path)):
             if (not os.path.exists(progress_path)
                     or progress.stream_complete(progress_path)):
                 self._log(f"skipping count for {stub}")
+                if os.path.exists(flat_path):
+                    return count.KmerTable.load_flat(flat_path)
                 return count.KmerTable.load(table_path)
             self._log(f"count for {stub}: outputs exist but the stream "
                       "never completed; recounting")
+        if cfg.count_passes > 1:
+            if stream is not None:
+                raise ValueError("multipass counting re-streams the input; "
+                                 "pass stream=None")
+            return self._count_sample_multipass(path, stub, lower, flat_path,
+                                                histo_path, progress_path)
         meter = Throughput(name=f"count[{stub}] reads")
         if stream is None:
             stream = self._prefetch(self._batch_stream(path, progress_path))
-        dev = DeviceKmerTable(cfg.k, self.device)
+        runs: list[str] = []
+
+        def spill_run(t):
+            rp = flat_path + f".run{len(runs)}"
+            t.to_flat(rp)
+            t.reset()
+            runs.append(rp)
+            self._log(f"count[{stub}]: device budget reached, spilled run "
+                      f"{len(runs)}")
+
+        guard = cfg.spill_tables == "on" or (cfg.spill_tables == "auto"
+                                             and self.device.type == "cuda")
+        dev = DeviceKmerTable(cfg.k, self.device, budget=self._budget(),
+                              spill=spill_run if guard else None)
         for reads in stream:
             dev.fold_batch(count_step(self._to_device(reads), cfg.k))
             meter.add(reads.shape[0])
+        # the last fold may spill too: its run must be in `runs` before
+        # they are counted
+        dev.flush()
         if not progress.stream_complete(progress_path):
             raise RuntimeError(f"count stream for {path} ended without the "
                                f"completion sentinel ({progress_path})")
-        dev.apply_lower_count(lower)
-        table = dev.to_host()
-        self._dev_tables[stub] = dev
         self._reads[stub] = meter.n
-        table.save(table_path)
+        if runs:
+            # the last table joins the runs; their merge-sum applies the
+            # floor to final counts (a per-run floor would drop split counts)
+            runs.append(flat_path + f".run{len(runs)}")
+            dev.to_flat(runs[-1])
+            self._folds[stub] = dev.folds
+            dev.release()
+            self._runs[stub] = len(runs)
+            t0 = time.perf_counter()
+            table = count.merge_flat_runs(runs, flat_path, lower_count=lower,
+                                          chunk=self._chunk(len(runs)),
+                                          device=self.device)
+            self._merge_s[stub] = time.perf_counter() - t0
+            for rp in runs:
+                os.remove(rp)
+            self._spill = True
+        else:
+            dev.apply_lower_count(lower)
+            self._folds[stub] = dev.folds
+            if self._spill is None:
+                # decided once, from the first finished table: the samples'
+                # tables resident at once against the budget
+                per = 16 * dev.keys.numel()
+                n_samples = 1 + len(cfg.controls)
+                self._spill = (cfg.spill_tables == "on" or (
+                    cfg.spill_tables == "auto" and self.device.type == "cuda"
+                    and per * n_samples > self._budget()))
+                if self._spill:
+                    self._log(f"spilling count tables to host memmaps "
+                              f"({per / 2**30:.1f} GiB x {n_samples} samples "
+                              f"> {cfg.hbm_budget_gb} GiB)")
+            if self._spill:
+                table = dev.to_flat(flat_path)
+                dev.release()
+            else:
+                table = dev.to_host()
+                self._dev_tables[stub] = dev
+                table.save(table_path)
         if len(table) == 0:
             raise RuntimeError(f"counting produced no kmers for {path}")
         modeldist.write_histo(histo_path, table.histo())
-        self._log(f"count[{stub}]: {len(table)} unique kmers, "
-                  f"{meter.rate():.0f} reads/s")
+        self._log(f"count[{stub}]: {len(table)} unique kmers"
+                  + (f" ({len(runs)} spilled runs merged)" if runs else "")
+                  + f", {meter.rate():.0f} reads/s")
+        if self._spill:
+            gc.collect()
+            malloc_trim()
+        return table
+
+    def _count_sample_multipass(self, path, stub, lower, flat_path,
+                                histo_path, progress_path):
+        """count_passes passes over the input: pass p folds only the keys
+        of the p-th ascending key range (bounds: quantiles of the first
+        batch, selected on the device) and writes a flat run; the table is
+        the runs' concatenation. The device holds about 1/count_passes of
+        the table, and the pending buffer is cut to 1/count_passes of its
+        keys, so each fold's transient shrinks with the pass too
+        (jellyfish --disk's role)."""
+        cfg = self.cfg
+        passes = cfg.count_passes
+        part_paths = []
+        folds = 0
+        for p in range(passes):
+            meter = Throughput(name=f"count[{stub}] pass{p} reads")
+            stream = self._prefetch(self._batch_stream(
+                path, progress_path if p == 0 else None))
+            dev = DeviceKmerTable(cfg.k, self.device,
+                                  pending_budget=PENDING_KEYS // passes)
+            for reads in stream:
+                keys = count_step(self._to_device(reads), cfg.k)
+                if self._pass_bounds is None:
+                    self._pass_bounds = [0, *make_splitters(keys, passes)
+                                         .tolist(), codec.SENTINEL]
+                    self._log(f"count multipass: {passes} key ranges, "
+                              "bounds from the first batch")
+                dev.fold_batch(select_range(keys, self._pass_bounds[p],
+                                            self._pass_bounds[p + 1]))
+                meter.add(reads.shape[0])
+            if p == 0:
+                if not progress.stream_complete(progress_path):
+                    raise RuntimeError(
+                        f"count stream for {path} ended without the "
+                        f"completion sentinel ({progress_path})")
+                self._reads[stub] = meter.n
+            dev.apply_lower_count(lower)
+            pp = flat_path + f".pass{p}"
+            dev.to_flat(pp)
+            folds += dev.folds
+            dev.release()
+            part_paths.append(pp)
+            self._log(f"count[{stub}] pass {p}: {meter.rate():.0f} reads/s")
+        table = count.concat_flat(part_paths, flat_path)
+        for pp in part_paths:
+            os.remove(pp)
+        self._folds[stub] = folds
+        self._spill = True  # downstream: the streamed subtract, host pulls
+        gc.collect()
+        malloc_trim()
+        if len(table) == 0:
+            raise RuntimeError(f"counting produced no kmers for {path}")
+        modeldist.write_histo(histo_path, table.histo())
+        self._log(f"count[{stub}]: {len(table)} unique kmers "
+                  f"({passes} passes)")
         return table
 
     def stage_count(self):
         """Count all samples; every sample's reader thread starts at once, so
         sample N+1's parsing overlaps sample N's folds (the reference's -pj
-        per-sample jellyfish jobs, runRufus.sh:766-797)."""
+        per-sample jellyfish jobs, runRufus.sh:766-797). Multipass counting
+        streams each sample once a pass, when its turn comes."""
         cfg = self.cfg
         jobs = [(cfg.subject, cfg.subject_stub, cfg.subject_low_k)] + [
             (c, cfg.control_stub(c), cfg.par_low_k) for c in cfg.controls]
@@ -375,7 +537,9 @@ class RufusPipeline:
                               device=str(self.device)) as rec:
             streams = {}
             for path, stub, _ in jobs:
-                if not os.path.exists(cfg.wpath(stub + ".table.npz")):
+                if cfg.count_passes == 1 and not any(
+                        os.path.exists(cfg.wpath(stub + ext))
+                        for ext in (".table.npz", ".table.flat")):
                     streams[stub] = self._prefetch(self._batch_stream(
                         path, cfg.wpath(stub + ".Jelly.chr")))
             done = [self.count_sample(path, stub, low,
@@ -385,9 +549,14 @@ class RufusPipeline:
                                    in zip(jobs, done)}
             rec["reads"] = {stub: self._reads[stub] for _, stub, _ in jobs
                             if stub in self._reads}
-            rec["folds"] = sum(self._dev_tables[stub].folds
-                               for _, stub, _ in jobs
-                               if stub in self._dev_tables)
+            rec["folds"] = sum(self._folds.get(stub, 0) for _, stub, _ in jobs)
+            rec["flat"] = bool(self._spill)
+            rec["lsm_runs"] = {stub: self._runs[stub] for _, stub, _ in jobs
+                               if stub in self._runs}
+            rec["merge_s"] = {stub: self._merge_s[stub] for _, stub, _ in jobs
+                              if stub in self._merge_s}
+            rec["budget_bytes"] = self._budget()
+            rec["mem"] = memory_attribution(self.device)
         return {"subject": done[0], "controls": done[1:]}
 
     # -- stage 2: model -----------------------------------------------------
@@ -430,11 +599,23 @@ class RufusPipeline:
             self._log("skipping hashlist")
             return hl_path
         with self.trace.stage("hashlist", device=str(self.device)) as rec:
-            devs = self._device_tables(tables)
-            mut_d, subj_d = subtract_step(devs[0], devs[1:], cfg.merge_min,
-                                          mutant_min_cov, max_hash_depth)
-            mut = codec.keys_i64_to_u64(mut_d.cpu().numpy())
-            subj = subj_d.cpu().numpy()
+            stubs = self._stubs()
+            if all(s in self._dev_tables for s in stubs):
+                devs = [self._dev_tables[s] for s in stubs]
+                mut_d, subj_d = subtract_step(devs[0], devs[1:],
+                                              cfg.merge_min, mutant_min_cov,
+                                              max_hash_depth)
+                mut = codec.keys_i64_to_u64(mut_d.cpu().numpy())
+                subj = subj_d.cpu().numpy()
+                rec["path"] = "device"
+            else:
+                # flat memmaps or tables resumed from disk: the subject
+                # streamed through the device a chunk at a time
+                host = [tables["subject"]] + list(tables["controls"])
+                mut, subj = count.subtract_unique_stream(
+                    host, cfg.merge_min, mutant_min_cov, max_hash_depth,
+                    chunk=self._chunk(len(host)), device=self.device)
+                rec["path"] = "host-stream"
             if cfg.exclude_hash and os.path.exists(cfg.exclude_hash):
                 keep = count.KmerTable.load(cfg.exclude_hash).query(mut) == 0
                 mut, subj = mut[keep], subj[keep]
@@ -835,7 +1016,7 @@ class RufusPipeline:
         # genotype pulls: each tab's k-mers canonicalized once and searched
         # in every sample's device table (the reference backgrounds one
         # `jellyfish query` a sample, Overlap.shorter.sh:265-303)
-        devs = self._device_tables(tables)
+        devs = self._pull_tables(tables)
         rec["pulled"] = 0  # k-mers looked up in every sample's table
         rec["found"] = [0] * len(devs)  # of them, present in each sample
 
@@ -983,9 +1164,11 @@ class RufusPipeline:
     # -- regenotype ---------------------------------------------------------
 
     def _load_table(self, stub: str):
-        """A sample's saved count table (.table.npz)."""
-        if os.path.exists(self.cfg.wpath(stub + ".table.flat")):
-            _not_ported(f"the flat count table of {stub}", "memory model")
+        """A sample's saved count table: its flat memmap (a spilled run) or
+        its .table.npz."""
+        flat = self.cfg.wpath(stub + ".table.flat")
+        if os.path.exists(flat):
+            return count.KmerTable.load_flat(flat)
         return count.KmerTable.load(self.cfg.wpath(stub + ".table.npz"))
 
     def regenotype(self, control_tables: list) -> str:

@@ -3,7 +3,8 @@ reference's wall timers and reads/sec prints, RUFUS.Filter.cpp:178-183).
 
 A pipeline run appends one JSON object per stage to its trace file: wall
 and CPU seconds, resident set size and, on a CUDA device, the peak of
-device memory allocated by PyTorch during the stage.
+device memory allocated by PyTorch during the stage. `malloc_trim` and
+`memory_attribution` are the JAX package's (its utils/trace.py).
 """
 
 from __future__ import annotations
@@ -25,6 +26,59 @@ def rss_mb() -> float:
     except OSError:
         pass
     return 0.0
+
+
+def malloc_trim() -> bool:
+    """Return freed glibc arena pages to the OS (host stages that churn
+    many small objects leave them resident, which reads as a leak in RSS).
+    False where there is no glibc."""
+    try:
+        import ctypes
+
+        libc = ctypes.CDLL("libc.so.6", use_errno=True)
+        return bool(libc.malloc_trim(0))
+    except OSError:
+        return False
+
+
+def _mallinfo_mb():
+    """(in use, freed but retained) MB of the glibc heap (mallinfo2)."""
+    try:
+        import ctypes
+
+        class _MI2(ctypes.Structure):
+            _fields_ = [(n, ctypes.c_size_t) for n in
+                        ("arena", "ordblks", "smblks", "hblks", "hblkhd",
+                         "usmblks", "fsmblks", "uordblks", "fordblks",
+                         "keepcost")]
+
+        libc = ctypes.CDLL("libc.so.6")
+        libc.mallinfo2.restype = _MI2
+        mi = libc.mallinfo2()
+        return (round((mi.uordblks + mi.hblkhd) / 1e6, 1),
+                round(mi.fordblks / 1e6, 1))
+    except (OSError, AttributeError):
+        return (0.0, 0.0)
+
+
+def memory_attribution(device=None, trim: bool = False) -> dict:
+    """RSS by owner: the glibc heap in use and freed but retained
+    (`trim` returns the latter to the OS), and, on a CUDA `device`, the
+    bytes PyTorch has allocated there and the allocator holds
+    (the JAX package's jax_live_mb); rss_mb is the total."""
+    out = {"rss_mb": round(rss_mb(), 1)}
+    if device is not None and device.type == "cuda":
+        import torch
+
+        out["cuda_allocated_mb"] = round(
+            torch.cuda.memory_allocated(device) / 1e6, 1)
+        out["cuda_reserved_mb"] = round(
+            torch.cuda.memory_reserved(device) / 1e6, 1)
+    out["heap_in_use_mb"], out["heap_retained_mb"] = _mallinfo_mb()
+    if trim:
+        out["trimmed"] = malloc_trim()
+        out["rss_after_trim_mb"] = round(rss_mb(), 1)
+    return out
 
 
 def banner(msg: str, stream=None):

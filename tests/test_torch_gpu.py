@@ -611,3 +611,142 @@ def test_full_run_on_card_equals_full_run_on_cpu(tmp_path, monkeypatch,
         assert any(not line.startswith("#") for line in f)
     assert (outs["cpu"] / (os.path.basename(finals["cpu"]) + ".gz.tbi")
             ).exists()
+
+
+# -- the memory model -----------------------------------------------------------
+
+
+def _flat_runs(tmp_path, n_runs, n, seed):
+    """Overlapping sorted unique flat runs of n random k = 25 keys."""
+    from rufus_tpu_torch.ops import count
+
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n_runs):
+        keys = np.unique(rng.integers(0, 1 << 50, n).astype(np.uint64))
+        paths.append(str(tmp_path / f"run{i}"))
+        count.KmerTable(25, keys, rng.integers(1, 9, len(keys))
+                        .astype(np.int64)).save_flat(paths[-1])
+    return paths
+
+
+@pytest.mark.parametrize("lower", [0, 2])
+def test_merge_chunk_on_card_equals_cpu(tmp_path, lower):
+    """merge_flat_runs' merge-sum on the card (stable sort and the counted
+    compact_runs) writes the bytes of the plain version, chunks across
+    tiles and runs of unequal reach."""
+    from rufus_tpu_torch.ops import count
+
+    dev = _card()
+    runs = _flat_runs(tmp_path, 4, 3_000_000, 7)
+    before = cuda_fold.compact_runs.launches
+    for device, name in ((dev, "cuda"), ("cpu", "cpu")):
+        count.merge_flat_runs(runs, str(tmp_path / name), lower_count=lower,
+                              chunk=1 << 20, device=device)
+    assert cuda_fold.compact_runs.launches > before
+    assert (tmp_path / "cuda").read_bytes() == (tmp_path / "cpu").read_bytes()
+
+
+def test_subtract_chunk_on_card_equals_cpu(tmp_path):
+    """subtract_unique_stream with each chunk's searches on the card equals
+    the plain version, the controls memmapped."""
+    from rufus_tpu_torch.ops import count
+
+    dev = _card()
+    tables = [count.KmerTable.load_flat(p)
+              for p in _flat_runs(tmp_path, 3, 2_000_000, 8)]
+    for chunk in (1 << 16, 1 << 24):
+        got = count.subtract_unique_stream(tables, 2, 3, 6, chunk=chunk,
+                                           device=dev)
+        want = count.subtract_unique_stream(tables, 2, 3, 6, chunk=chunk)
+        assert len(want[0]) > 0
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
+def test_table_under_a_budget_on_card(tmp_path):
+    """A DeviceKmerTable on the card with a budget a quarter of the
+    unconstrained table's folds: it spills, the merged runs equal the
+    unconstrained table, and max_memory_allocated over the folds stays
+    within the budget."""
+    from rufus_tpu_torch.ops import count, table as ptable
+
+    dev = _card()
+    g = torch.Generator(device="cpu").manual_seed(9)
+    batches = [torch.randint(0, 1 << 26, (1 << 21,), generator=g)
+               for _ in range(12)]
+    plain = ptable.DeviceKmerTable(25, dev)
+    for b in batches:
+        plain.fold_batch(b.to(dev))
+    want = plain.to_host()
+    plain.release()
+    runs = []
+
+    def spill(t):
+        runs.append(str(tmp_path / f"run{len(runs)}"))
+        t.to_flat(runs[-1])
+        t.reset()
+
+    budget = 8 * ptable.MERGE_BYTES * (1 << 21)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = ptable.DeviceKmerTable(25, dev, budget=budget, spill=spill)
+    for b in batches:
+        t.fold_batch(b.to(dev))
+    runs.append(str(tmp_path / "last"))
+    t.to_flat(runs[-1])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    t.release()
+    assert t.spills >= 1
+    assert peak <= budget, (peak, budget)
+    got = count.merge_flat_runs(runs, str(tmp_path / "merged"), device=dev)
+    np.testing.assert_array_equal(np.asarray(got.keys), want.keys)
+    np.testing.assert_array_equal(np.asarray(got.counts), want.counts)
+
+
+@pytest.mark.parametrize("mode", ["lsm", "multipass"])
+def test_spilled_slice_on_card_equals_resident_slice_on_cpu(tmp_path, mode):
+    """The trio through the filter with spilled tables (LSM runs under a
+    small budget, or count_passes 3) on the card: its flat tables hold the
+    resident CPU run's tables, and every other file is byte-equal."""
+    _card()
+    data = synthetic.write_trio(str(tmp_path / "fastq"), genome_bp=200_000,
+                                coverage=30, n_denovo=20, seed=1)
+    c, m, f = data["child"], data["mother"], data["father"]
+    from rufus_tpu_torch.ops import table
+
+    # the least budget that holds a 512-read batch, and 5% more
+    budget = 1.05 * 512 * (160 - 25 + 1) * max(
+        table.PENDING_BYTES + table.TABLE_BYTES, 2 * table.MERGE_BYTES)
+    over = {"lsm": dict(spill_tables="on", hbm_budget_gb=budget / 2**30,
+                        batch_size=512),
+            "multipass": dict(count_passes=3)}[mode]
+    outs = {}
+    for device, kw in (("cuda", over), ("cpu", {})):
+        wd = tmp_path / device
+        pipe = RufusPipeline(RufusConfig(
+            subject=",".join(c), controls=[",".join(m), ",".join(f)], k=25,
+            workdir=str(wd), exome=True, min_cov=5, stop_after="filter",
+            fastq_a=c[0], fastq_b=c[1], device=device,
+            **{"batch_size": 8192, **kw}))
+        pipe.run()
+        if device == "cuda" and mode == "lsm":
+            assert min(pipe._runs.values()) >= 2
+        outs[device] = wd
+    from rufus_tpu_torch.ops import count
+
+    names = sorted(n for n in os.listdir(outs["cpu"])
+                   if os.path.isfile(outs["cpu"] / n))
+    for n in names:
+        if n.endswith(".table.npz"):
+            t = count.KmerTable.load_flat(
+                str(outs["cuda"] / n.replace(".npz", ".flat")))
+            z = np.load(outs["cpu"] / n)
+            np.testing.assert_array_equal(t.keys, z["keys"])
+            np.testing.assert_array_equal(t.counts, z["counts"])
+        else:
+            assert (outs["cuda"] / n).read_bytes() == \
+                (outs["cpu"] / n).read_bytes(), n

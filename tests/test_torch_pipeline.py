@@ -91,20 +91,21 @@ def test_slice_is_batch_size_independent(trio, jax_run, tmp_path):
 
 
 def test_unported_options_raise(trio, tmp_path):
-    """The memory model and multi-GPU raise NotImplementedError; an unknown
-    stop stage, a filter with neither -q1/-q2 nor a BAM/CRAM subject, and
-    alignment (through contig_align or the full run) without a reference
-    raise ValueError."""
+    """Multi-GPU raises NotImplementedError (the memory model, ported,
+    no longer does: tests/test_torch_memory.py runs it); an unknown stop
+    stage or spill_tables, a filter with neither -q1/-q2 nor a BAM/CRAM
+    subject, and alignment (through contig_align or the full run) without
+    a reference raise ValueError."""
     d, data = trio
-    for over in ({"count_passes": 2}, {"spill_tables": "on"},
-                 {"subject": "child.bam", "count_passes": 2},
-                 {"single_end": True, "sharded": "on"}, {"sharded": "on"},
-                 {"stop_after": "", "count_passes": 2}):
+    for over in ({"single_end": True, "sharded": "on"}, {"sharded": "on"},
+                 {"count_passes": 2, "sharded": "on"},
+                 {"spill_tables": "on", "sharded": "on"}):
         cfg = RufusConfig(**_kwargs(data, tmp_path, device="cpu", **over))
         with pytest.raises(NotImplementedError):
             RufusPipeline(cfg).run()
     for over in ({"k": 32}, {"fastq_a": ""}, {"stop_after": "contig_align"},
-                 {"stop_after": ""}, {"stop_after": "interpret"}):
+                 {"stop_after": ""}, {"stop_after": "interpret"},
+                 {"spill_tables": "sometimes"}):
         with pytest.raises(ValueError):
             RufusPipeline(RufusConfig(**_kwargs(data, tmp_path, device="cpu",
                                                 **over))).run()

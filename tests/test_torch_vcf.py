@@ -284,9 +284,12 @@ def test_cli_mosaic_matches_jax(trio, aligned, tmp_path, monkeypatch, capsys):
 
 def test_flat_tables_name_the_memory_model(trio, aligned, tmp_path,
                                            monkeypatch):
-    """--regenotype with a .table.flat, and regenotype on a workdir whose
-    subject table is flat, raise NotImplementedError naming the ROADMAP
-    entry."""
+    """With the memory model ported: --regenotype takes .npz tables, as the
+    JAX CLI does, and refuses a .table.flat with a ValueError that names
+    the flat table; regenotype on a workdir whose subject table is a
+    .table.flat opens it (_load_table), and a file there that is not a
+    flat table raises ValueError (tests/test_torch_memory.py runs the
+    regenotype on real flat tables)."""
     from rufus_tpu_torch.pipeline.__main__ import main
 
     d, data, bams = trio
@@ -299,10 +302,10 @@ def test_flat_tables_name_the_memory_model(trio, aligned, tmp_path,
         "rufus_tpu_torch", "-s", ",".join(c), "-k", str(K),
         "-r", str(d / "ref.fa"), "--workdir", str(wd), "--device", "cpu",
         "--regenotype", str(flat)])
-    with pytest.raises(NotImplementedError, match="memory model"):
+    with pytest.raises(ValueError, match="flat table"):
         main()
     cfg = RufusConfig(workdir=str(wd), device="cpu",
                       **_kwargs(d, data, bams))
     (wd / (cfg.subject_stub + ".table.flat")).write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="memory model"):
+    with pytest.raises(ValueError, match="not a flat k-mer table"):
         RufusPipeline(cfg).regenotype([])
