@@ -42,6 +42,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
              that contigs were aligned, that interpret wrote rows, and that
              FINAL.vcf.gz and its .tbi exist and the tabix query over the
              whole contig returns FINAL.vcf's rows;
+   sharded - the sharded chain on one card: a fresh pipeline on a mesh of
+             four shards on cuda:0 (parallel.make_mesh(4, "cuda:0")) runs
+             the trio from the FASTQ files to FINAL.vcf.gz with the launch
+             counts set to 0, the FASTQ run's ModelDist outputs copied in
+             and interpret's ##fileDate pinned to the FASTQ run's; it runs
+             under the FASTQ run's workdir path, that run moved aside while
+             it runs, since the VCF header names the workdir. Each sample's
+             histogram and table, the HashList, the kept pairs, the contig
+             stage's pull files and FINAL.vcf, its .gz and .tbi must equal the
+             1-shard run's bytes, and every kernel of the path must launch. Prints the
+             shards, each sample's flushes, exchanged (key, count) pairs
+             and largest and mean unique keys a shard, each stage's wall
+             time beside the 1-shard run's, the count stage's device peak,
+             the launches, and which other files of the workdir differ (not
+             a gate). Four shards on one card show placement and exactness,
+             not scaling across cards;
    regenotype - a fresh RufusPipeline on the slice's workdir re-genotypes
              its contigs against the parents' saved tables (.table.npz):
              its FINAL.vcf must equal the run's in every line but
@@ -694,6 +710,114 @@ def _fastq_records(path):
     return [tuple(lines[i:i + 4]) for i in range(0, len(lines) - 1, 4)]
 
 
+def phase_sharded(data, work, fastq_wd, fastq_info):
+    """The trio to FINAL.vcf.gz on four shards of cuda:0, held to the
+    1-shard FASTQ run in fastq_wd (see the module's docstring)."""
+    import types
+
+    import numpy as np
+
+    import rufus_tpu_torch.interpret.driver as interpret_driver
+    from rufus_tpu_torch.ops import cuda_sw
+    from rufus_tpu_torch.parallel import make_mesh
+    from rufus_tpu_torch.pipeline import RufusPipeline
+
+    gc.collect()
+    one = os.path.join(work, "run_one_shard")
+    os.rename(fastq_wd, one)
+    try:
+        os.makedirs(fastq_wd)
+        cfg = slice_config(data, fastq_wd)
+        for ext in (".7.7.model", ".7.7.dist", ".7.7.prob"):
+            shutil.copy(os.path.join(one, cfg.subject_stub + ".Jhash.histo"
+                                     + ext), fastq_wd)
+        vcf = os.path.join(one, cfg.name_stub
+                           + ".overlap.hashcount.fastq.bam.vcf")
+        date = next(int(line.split("=", 1)[1]) for line in open(vcf)
+                    if line.startswith("##fileDate="))
+        kernels = dict(_kernels(), sw_batch=cuda_sw.sw_ragged)
+        for fn in kernels.values():
+            fn.launches = 0
+        clock = interpret_driver.time
+        interpret_driver.time = types.SimpleNamespace(time=lambda: date)
+        try:
+            pipe = RufusPipeline(cfg, mesh=make_mesh(4, "cuda:0"))
+            t0 = time.perf_counter()
+            final = pipe.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            interpret_driver.time = clock
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        stages = {s["stage"]: s for s in pipe.trace.stages}
+
+        def read(*p):
+            with open(os.path.join(*p), "rb") as f:
+                return f.read()
+
+        stubs = [cfg.subject_stub] + [cfg.control_stub(c)
+                                      for c in cfg.controls]
+        gated = [st + ".Jhash.histo" for st in stubs]
+        gated += [n for n in os.listdir(one) if n.endswith(".HashList")
+                  or ".Mutations.Mate" in n]
+        gated += [os.path.join("Intermediates", n)
+                  for n in os.listdir(os.path.join(one, "Intermediates"))
+                  if n.endswith((".sample", ".Jhash", ".RepRefHash"))]
+        gated += [os.path.basename(final) + ext for ext in ("", ".gz",
+                                                             ".gz.tbi")]
+        differ = [n for n in gated if not os.path.exists(
+            os.path.join(fastq_wd, n)) or read(fastq_wd, n) != read(one, n)]
+        for st in stubs:
+            za = np.load(os.path.join(fastq_wd, st + ".table.npz"))
+            zb = np.load(os.path.join(one, st + ".table.npz"))
+            if sorted(za.files) != sorted(zb.files) or not all(
+                    np.array_equal(za[k], zb[k]) for k in zb.files):
+                differ.append(st + ".table.npz")
+        others = []
+        for root, _, names in os.walk(one):
+            for n in names:
+                rel = os.path.relpath(os.path.join(root, n), one)
+                if (rel not in gated and not rel.endswith(".table.npz")
+                        and n != "trace.jsonl"
+                        and (not os.path.exists(os.path.join(fastq_wd, rel))
+                             or read(fastq_wd, rel) != read(one, rel))):
+                    others.append(rel)
+        hl = [n for n in gated if n.endswith(".HashList")][0]
+        with open(os.path.join(fastq_wd, hl)) as f:
+            n_mutant = sum(1 for _ in f)
+        m1 = [n for n in gated if n.endswith(".Mate1.fastq")][0]
+        with open(os.path.join(fastq_wd, m1)) as f:
+            kept = sum(1 for _ in f) // 4
+        count = stages["count"]
+        info = {"phase": "sharded", "shards": pipe.mesh.n,
+                "devices": [str(d) for d in pipe.mesh.devices],
+                "wall_s": wall, "flushes": count["flushes"],
+                "exchanged_keys": count["exchanged_keys"],
+                "shard_keys_max": count["shard_keys_max"],
+                "shard_keys_mean": count["shard_keys_mean"],
+                "unique_kmers": count["unique_kmers"],
+                "stage_wall_s": {n: [s["wall_s"],
+                                     fastq_info["stage_wall_s"].get(n)]
+                                 for n, s in stages.items()},
+                "count_device_peak_bytes": count.get("device_peak_bytes"),
+                "one_shard_count_device_peak_bytes":
+                    fastq_info["device_peak_bytes"]["count"],
+                "launches": launches, "hashlist_lines": n_mutant,
+                "kept_pairs": kept, "compared_files": len(gated) + len(stubs),
+                "differ": differ, "other_files_differ": others}
+        emit(info)
+    finally:
+        os.rename(fastq_wd, os.path.join(work, "run_sharded"))
+        os.rename(one, fastq_wd)
+    if differ:
+        raise AssertionError(f"the 4-shard run differs from the 1-shard run "
+                             f"in {differ}")
+    if min(launches.values()) <= 0 or info["shards"] != 4:
+        raise AssertionError(f"a kernel of the sharded path never launched: "
+                             f"{launches}")
+    return info
+
+
 def phase_bam(data, work, fastq_wd, fastq_info, seed):
     """The trio from BAMs through the filter, paired and single-end, held
     to the FASTQ run in fastq_wd (see the module's docstring)."""
@@ -1257,6 +1381,7 @@ def main():
         data = phase_data(os.path.join(work, "fastq"), args.genome_mbp,
                           args.seed)
         sl, hl_path = phase_slice(data, os.path.join(work, "run"))
+        phase_sharded(data, work, os.path.join(work, "run"), sl)
         phase_regenotype(data, os.path.join(work, "run"))
         phase_memory(data, work, os.path.join(work, "run"), sl)
         phase_bam(data, work, os.path.join(work, "run"), sl, args.seed)

@@ -169,3 +169,18 @@ def stream_ptr(device) -> ctypes.c_void_p:
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def on_card(fn):
+    """Decorates a launcher whose first argument is a CUDA tensor. The C
+    entry points launch on the current device, and a stream of another
+    card would fail, so the tensor's card is made current for the call:
+    a shard of a mesh may be on any card."""
+    @functools.wraps(fn)
+    def run(t, *args, **kwargs):
+        import torch
+
+        with torch.cuda.device(t.device):
+            return fn(t, *args, **kwargs)
+
+    return run

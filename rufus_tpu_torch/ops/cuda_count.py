@@ -31,6 +31,7 @@ def encode_canon_torch(reads: torch.Tensor, k: int) -> torch.Tensor:
     return torch.where(valid, canon, torch.full_like(canon, codec.SENTINEL))
 
 
+@_build.on_card
 def _encode_canon_cuda(reads: torch.Tensor, k: int) -> torch.Tensor:
     B, L = reads.shape
     rows = max(1, min(64, _STAGE_BASES // L))

@@ -105,6 +105,7 @@ def window_hits_torch(reads, quals, lens, table_keys, k: int, min_q: int):
     return (scanned & member).sum(dim=1).to(torch.int32)
 
 
+@_build.on_card
 def _window_hits_cuda(reads, quals, lens, table_keys, k: int, min_q: int,
                       index: HashListIndex):
     B, L = reads.shape

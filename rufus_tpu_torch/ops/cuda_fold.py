@@ -75,6 +75,7 @@ def _entry_points():
     return count, run, stage, gather
 
 
+@_build.on_card
 def _compact_runs_cuda(keys: torch.Tensor, counts: torch.Tensor | None):
     dev = keys.device
     n = keys.numel()

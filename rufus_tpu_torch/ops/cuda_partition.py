@@ -59,6 +59,7 @@ def run_metadata_torch(keys: torch.Tensor, k: int):
 _META_GROUPS = 1024  # the most runs of blocks the count kernel is given
 
 
+@_build.on_card
 def _run_metadata_cuda(keys: torch.Tensor, k: int):
     n = keys.numel()
     nblk = -(-n // BLOCK)
@@ -126,6 +127,7 @@ def partition_torch(keys: torch.Tensor, k: int):
     return out, offsets
 
 
+@_build.on_card
 def _partition_cuda(keys: torch.Tensor, k: int, runlen: torch.Tensor,
                     cursors: torch.Tensor):
     out = torch.empty_like(keys)

@@ -215,6 +215,7 @@ def launch_chunk(max_m: int) -> int:
 _SMEM_BYTES = 232448  # a block's shared memory on the H100
 
 
+@_build.on_card
 def _sw_ragged_cuda(codes, qoff, n, roff, m, match, mismatch, gap_open,
                     gap_ext, gap_max):
     """One launch of the kernel; returns (out, H workspace)."""

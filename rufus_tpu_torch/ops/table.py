@@ -3,7 +3,8 @@ subtract it.
 
 The single-device counterpart of ``rufus_tpu/parallel/sharded.py``'s
 ``ShardedKmerTable``, ``sharded_count_step``, ``sharded_fold_step`` and
-``sharded_subtract_step``. The device table holds exactly its sorted unique
+``sharded_subtract_step``, and each shard of the port's sharded table
+(``parallel/sharded.py``). The device table holds exactly its sorted unique
 keys and counts: each fold sizes the new table from the compaction
 kernel's unique count, so there is no capacity, no growth and no retry.
 The contents do not depend on that choice, so the outputs equal the JAX
@@ -77,6 +78,11 @@ class DeviceKmerTable:
             self.pending_cap = budget // max(PENDING_BYTES + TABLE_BYTES,
                                              2 * MERGE_BYTES)
             self.pending_budget = min(pending_budget, self.pending_cap)
+
+    @property
+    def n_keys(self) -> int:
+        """Committed unique keys."""
+        return self.keys.numel()
 
     def fold_batch(self, batch_keys: torch.Tensor, batch_counts=None):
         """Queue raw count-1 keys (batch_counts=None) or (keys, counts);
@@ -207,16 +213,21 @@ def make_splitters(keys, n_parts: int, sample: int = 1 << 16) -> np.ndarray:
     size: (n_parts - 1,) int64 quantiles of a systematic sample, sentinels
     left out. A copy of ``rufus_tpu/parallel/sharded.py:make_splitters`` on
     the port's int64 keys; the parts change where keys are counted, never
-    the table."""
+    the table. An item of the list may also be a list of rows (a batch's
+    keys, a tensor a shard, on their devices), sampled as the rows of one
+    2-D array: JAX's sharded (n, W) batch."""
     arrs = list(keys) if isinstance(keys, (list, tuple)) else [keys]
     per = max(1, sample // max(1, len(arrs)))
     pools = []
     for a in arrs:
-        stride = max(1, a.shape[-1] // max(1, per))
-        a = a[..., ::stride]
-        pools.append((a.cpu().numpy() if isinstance(a, torch.Tensor)
-                      else np.asarray(a)).ravel())
-    ks = np.concatenate(pools).astype(np.int64)
+        rows = a if isinstance(a, (list, tuple)) else [a]
+        stride = max(1, rows[0].shape[-1] // max(1, per))
+        for r in rows:
+            r = r[..., ::stride]
+            pools.append((r.cpu().numpy() if isinstance(r, torch.Tensor)
+                          else np.asarray(r)).ravel())
+    ks = (np.concatenate(pools) if pools
+          else np.empty(0)).astype(np.int64)
     ks = ks[ks != codec.SENTINEL]
     if len(ks) == 0:
         return np.linspace(0, float(codec.SENTINEL), n_parts + 1,

@@ -56,7 +56,8 @@ def main():
                    help="-CLEAN: purge intermediates after the run "
                         "(runRufus.sh:351-356)")
     p.add_argument("--sharded", default="auto", choices=["auto", "on", "off"],
-                   help="multi-device pipeline (not ported: one device)")
+                   help="auto/on: count, subtract, filter and pulls "
+                        "sharded over every visible card; off: one card")
     p.add_argument("--flat-index", default="",
                    help="memmapped seed index for the aligner")
     p.add_argument("--pacbio", nargs="?", const="", default=None,

@@ -2,8 +2,7 @@
 reference: runRufus.sh:135-366 with defaults at 27, 61-69, 424-435).
 
 The fields are those of the JAX package that the pipeline reads, plus
-`device`. `sharded` stays so a JAX configuration's value can be passed on;
-the pipeline refuses "on" (one device)."""
+`device`."""
 
 from __future__ import annotations
 
@@ -43,7 +42,10 @@ class RufusConfig:
     assembly_speed: str = "full"  # or "veryfast"
     stop_after: str = ""  # "jhash" | "hashlist" | "filter" (StJ/StH/StF)
     # | "contig_align" (interpret's inputs) | "" (the full run, to FINAL.vcf)
-    sharded: str = "auto"  # "on" is refused: one device
+    sharded: str = "auto"  # "auto" or "on": the count, subtract, filter
+    # and pulls on a mesh of every visible card (device "cuda"; one shard
+    # on "cuda:i" or "cpu"); "off": one shard. RufusPipeline(cfg, mesh)
+    # takes any other mesh, such as several shards on one card.
     clean: bool = False  # -CLEAN: remove intermediates after the run
     # (runRufus.sh:351-356)
     flat_index: str = ""  # path to a build_flat_index seed index: built

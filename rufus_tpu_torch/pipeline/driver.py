@@ -1,4 +1,4 @@
-"""The RUFUS trio pipeline on one CUDA device: count -> model -> subtract
+"""The RUFUS trio pipeline on CUDA devices: count -> model -> subtract
 -> filter -> align reads -> assemble -> align contigs and pull genotype
 counts -> interpret -> polish (runRufus.sh and Overlap.shorter.sh), from
 BAM, CRAM or FASTQ to <name>.FINAL.vcf, its bgzipped .vcf.gz and .tbi.
@@ -31,8 +31,18 @@ the device (``ops/query.py``). Interpret (``interpret/``) and polish
 (``polish.py``) are host Python, as in the JAX package. Besides ``run``
 (stopping after cfg.stop_after, or the full run), the entry points are
 ``run_longread`` (the PacBio path) and ``regenotype`` (new control tables
-against the contigs in the workdir). Multi-GPU is not ported yet: the
-pipeline refuses it and names the ROADMAP.md entry that will bring it.
+against the contigs in the workdir).
+
+The count, subtract, filter and pulls run on a mesh of shards
+(``parallel/sharded.py``): every visible card with sharded "auto" or "on",
+or the mesh a caller passes, such as several shards on one card. On more
+than one shard each sample's table is range-partitioned over the shards
+(one set of splitters for every sample of the run), the subtract is local
+to each shard, the filter cuts each batch over the shards with the
+HashList replicated, and the pulls are routed to the owner shards; one
+shard keeps the single-table path. Alignment, assembly, interpret and
+polish run on the first shard's device, as the JAX package's aligner runs
+on the default device.
 """
 
 from __future__ import annotations
@@ -64,10 +74,10 @@ from ..models import modeldist
 from ..ops import codec, count
 from ..ops.cuda_filter import hashlist_index
 from ..ops.filter import filter_pairs, filter_single
-from ..ops.query import query_counts
 from ..ops.table import (MERGE_BYTES, DeviceKmerTable, count_step,
                          PENDING_KEYS, make_splitters, select_range,
                          subtract_step)
+from ..parallel import sharded
 from ..utils import shims
 from ..utils.trace import (StageTimer, Throughput, malloc_trim,
                            memory_attribution)
@@ -140,23 +150,31 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
-def _not_ported(what: str, entry: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
-                              f"'Queue A': {entry})")
-
-
 class RufusPipeline:
-    def __init__(self, cfg: RufusConfig):
+    def __init__(self, cfg: RufusConfig,
+                 mesh: sharded.ShardMesh | None = None):
+        """`mesh`: the shards of the count, subtract, filter and pulls;
+        None builds it from cfg.device (every visible card on "cuda", one
+        shard on "cuda:i" or "cpu"), one shard with sharded "off"."""
         self.cfg = cfg
-        self.device = resolve_device(cfg.device)
+        if mesh is None:
+            mesh = sharded.make_mesh(1 if cfg.sharded == "off" else None,
+                                     resolve_device(cfg.device))
+        elif cfg.sharded == "off" and mesh.n > 1:
+            raise ValueError(f"sharded='off' with a mesh of {mesh.n} shards")
+        self.mesh = mesh
+        self.device = mesh.devices[0]
         os.makedirs(cfg.workdir, exist_ok=True)
         os.makedirs(cfg.wpath("Intermediates"), exist_ok=True)
         os.makedirs(cfg.wpath("TempOverlap"), exist_ok=True)
         self._log = print
         self.trace = StageTimer(log_path=cfg.wpath("Intermediates",
                                                    "trace.jsonl"),
-                                device=self.device)
-        self._dev_tables: dict = {}  # stub -> DeviceKmerTable (resident)
+                                devices=mesh.cards, shards=mesh.n)
+        self._dev_tables: dict = {}  # stub -> DeviceKmerTable, or
+        # ShardedKmerTable on more than one shard (resident)
+        self._splitters = None  # the run's partition, from its first count
+        self._shard_stats: dict = {}  # stub -> its sharded count's stats
         self._reads: dict = {}  # stub -> reads counted
         self._folds: dict = {}  # stub -> folds of its count
         self._runs: dict = {}  # stub -> LSM runs its count spilled
@@ -168,10 +186,10 @@ class RufusPipeline:
         self._ref_index = None
 
     def check_supported(self, entry: str = "run"):
-        """Raise NotImplementedError for what the port does not run yet
-        (multi-GPU), and ValueError for an unknown stop stage or
-        spill_tables, a run that aligns without a reference FASTA, or a
-        filter that has no reads to read. `entry` is "run",
+        """Raise NotImplementedError for multipass counting on more than one
+        shard (as the JAX package does), and ValueError for an unknown stop
+        stage or spill_tables, a run that aligns without a reference FASTA,
+        or a filter that has no reads to read. `entry` is "run",
         "filter_single" (run_longread with no contigs FASTA) or "align"
         (run_longread with one, and regenotype)."""
         cfg = self.cfg
@@ -182,8 +200,10 @@ class RufusPipeline:
         if cfg.spill_tables not in ("auto", "on", "off"):
             raise ValueError(f"unknown spill_tables {cfg.spill_tables!r}: "
                              "'auto', 'on' or 'off'")
-        if cfg.sharded == "on":
-            _not_ported("sharded='on'", "multi-GPU")
+        if cfg.count_passes > 1 and self.mesh.n > 1:
+            raise NotImplementedError(
+                "count_passes>1 is single-device (a multi-chip mesh already "
+                "range-partitions the table across chips)")
         aligns = entry != "run" or cfg.stop_after in ("contig_align", "")
         if aligns and not cfg.ref:
             raise ValueError("read and contig alignment need a reference "
@@ -236,11 +256,11 @@ class RufusPipeline:
 
     def _pull_tables(self, tables) -> list:
         """Every sample's table for the genotype pulls, subject first: the
-        resident DeviceKmerTable under its stub, which wins over the table
-        handed in (as in the JAX package); else a memmapped flat table as
-        it is, bisected on the host and never uploaded whole; else the
-        host table uploaded for the caller alone, freed when its stage
-        drops it."""
+        resident table under its stub (sharded on more than one shard),
+        which wins over the table handed in (as in the JAX package); else
+        a memmapped flat table as it is, bisected on the host and never
+        uploaded whole; else the host table uploaded for the caller alone,
+        freed when its stage drops it."""
         hosts = [tables["subject"]] + list(tables["controls"])
         return [self._dev_tables[s] if s in self._dev_tables
                 else t if t.mapped
@@ -367,6 +387,10 @@ class RufusPipeline:
         spill. Outputs are reused only when the previous run's progress
         file carries the completion sentinel.
 
+        On more than one shard the table is a ShardedKmerTable: each batch
+        is cut over the shards, and the splitters its first count freezes
+        serve every later sample of the run.
+
         With the LSM guard (spill_tables "on", or "auto" on cuda) a fold
         that would pass hbm_budget_gb first spills the committed table to a
         sorted flat run; the runs are merge-summed at the end, the floor
@@ -408,14 +432,26 @@ class RufusPipeline:
 
         guard = cfg.spill_tables == "on" or (cfg.spill_tables == "auto"
                                              and self.device.type == "cuda")
-        dev = DeviceKmerTable(cfg.k, self.device, budget=self._budget(),
-                              spill=spill_run if guard else None)
-        for reads in stream:
-            dev.fold_batch(count_step(self._to_device(reads), cfg.k))
-            meter.add(reads.shape[0])
+        spill = spill_run if guard else None
+        if self.mesh.n > 1:
+            dev = sharded.ShardedKmerTable(self.mesh, cfg.k,
+                                           splitters=self._splitters,
+                                           budget=self._budget(), spill=spill)
+            for reads in stream:
+                dev.fold_batch(sharded.local_count_step(self.mesh, reads,
+                                                        cfg.k))
+                meter.add(reads.shape[0])
+        else:
+            dev = DeviceKmerTable(cfg.k, self.device, budget=self._budget(),
+                                  spill=spill)
+            for reads in stream:
+                dev.fold_batch(count_step(self._to_device(reads), cfg.k))
+                meter.add(reads.shape[0])
         # the last fold may spill too: its run must be in `runs` before
         # they are counted
         dev.flush()
+        if self.mesh.n > 1 and self._splitters is None:
+            self._splitters = dev.splitters
         if not progress.stream_complete(progress_path):
             raise RuntimeError(f"count stream for {path} ended without the "
                                f"completion sentinel ({progress_path})")
@@ -425,7 +461,7 @@ class RufusPipeline:
             # floor to final counts (a per-run floor would drop split counts)
             runs.append(flat_path + f".run{len(runs)}")
             dev.to_flat(runs[-1])
-            self._folds[stub] = dev.folds
+            self._note_folds(stub, dev)
             dev.release()
             self._runs[stub] = len(runs)
             t0 = time.perf_counter()
@@ -438,11 +474,11 @@ class RufusPipeline:
             self._spill = True
         else:
             dev.apply_lower_count(lower)
-            self._folds[stub] = dev.folds
+            self._note_folds(stub, dev)
             if self._spill is None:
                 # decided once, from the first finished table: the samples'
                 # tables resident at once against the budget
-                per = 16 * dev.keys.numel()
+                per = 16 * dev.n_keys
                 n_samples = 1 + len(cfg.controls)
                 self._spill = (cfg.spill_tables == "on" or (
                     cfg.spill_tables == "auto" and self.device.type == "cuda"
@@ -468,6 +504,18 @@ class RufusPipeline:
             gc.collect()
             malloc_trim()
         return table
+
+    def _note_folds(self, stub: str, dev):
+        """A count's folds, and a sharded count's flushes, (key, count)
+        pairs exchanged, spills and shard balance (its shards' unique
+        keys), for the trace."""
+        self._folds[stub] = dev.folds
+        if isinstance(dev, sharded.ShardedKmerTable):
+            sizes = dev.shard_keys()
+            self._shard_stats[stub] = {**dev.stats,
+                                       "shard_keys_max": max(sizes),
+                                       "shard_keys_mean": sum(sizes)
+                                       / len(sizes)}
 
     def _count_sample_multipass(self, path, stub, lower, flat_path,
                                 histo_path, progress_path):
@@ -556,6 +604,11 @@ class RufusPipeline:
             rec["merge_s"] = {stub: self._merge_s[stub] for _, stub, _ in jobs
                               if stub in self._merge_s}
             rec["budget_bytes"] = self._budget()
+            if self.mesh.n > 1:
+                for key in ("flushes", "exchanged_keys", "shard_keys_max",
+                            "shard_keys_mean"):
+                    rec[key] = {stub: st[key] for stub, st
+                                in self._shard_stats.items()}
             rec["mem"] = memory_attribution(self.device)
         return {"subject": done[0], "controls": done[1:]}
 
@@ -602,12 +655,13 @@ class RufusPipeline:
             stubs = self._stubs()
             if all(s in self._dev_tables for s in stubs):
                 devs = [self._dev_tables[s] for s in stubs]
-                mut_d, subj_d = subtract_step(devs[0], devs[1:],
-                                              cfg.merge_min, mutant_min_cov,
-                                              max_hash_depth)
+                step = (sharded.sharded_subtract_step if self.mesh.n > 1
+                        else subtract_step)
+                mut_d, subj_d = step(devs[0], devs[1:], cfg.merge_min,
+                                     mutant_min_cov, max_hash_depth)
                 mut = codec.keys_i64_to_u64(mut_d.cpu().numpy())
                 subj = subj_d.cpu().numpy()
-                rec["path"] = "device"
+                rec["path"] = "sharded" if self.mesh.n > 1 else "device"
             else:
                 # flat memmaps or tables resumed from disk: the subject
                 # streamed through the device a chunk at a time
@@ -717,9 +771,32 @@ class RufusPipeline:
             progress.write_complete(progress_path)
 
     def _hashlist_table(self, hl_path: str):
+        """The HashList on the device and its hashlist_index; on more than
+        one shard, a (table, index) for each shard (replicate_hashlist)."""
         table = hashlist_keys_to_int64(hio.hashlist_keys(hl_path, self.cfg.k),
                                        self.device)
+        if self.mesh.n > 1:
+            return sharded.replicate_hashlist(self.mesh, table, self.cfg.k)
         return table, hashlist_index(table, self.cfg.k)
+
+    def _keep_mask(self, tensors, hl) -> np.ndarray:
+        """The filter's keep mask of a batch, on the host: `tensors` are its
+        host tensors, [seq, qual, lens] a mate (one mate or a pair), `hl`
+        is _hashlist_table's. On more than one shard the batch is cut over
+        the shards (sharded_filter_step)."""
+        cfg = self.cfg
+        args = (cfg.k, cfg.filter_min_q, cfg.filter_k_threshold)
+        if self.mesh.n > 1:
+            mates = [tensors[i:i + 3] for i in range(0, len(tensors), 3)]
+            return sharded.sharded_filter_step(self.mesh, mates, hl,
+                                               *args).numpy()
+        table, index = hl
+        dev = [self._to_device(t) for t in tensors]
+        if len(dev) == 6:
+            keep = filter_pairs(*dev, table, *args, index)[0]
+        else:
+            keep = filter_single(*dev, table, *args, index)[0]
+        return keep.cpu().numpy()
 
     @staticmethod
     def _write_kept(f, names, i: int, seq, qual, lens):
@@ -740,7 +817,7 @@ class RufusPipeline:
             self._log("skipping filter")
             return m1_path, m2_path
         progress_path = cfg.wpath(cfg.subject_stub + ".filter.chr")
-        table, index = self._hashlist_table(hl_path)
+        hl = self._hashlist_table(hl_path)
         kept = reads = 0
         # tmp + rename: a crash mid-stage must not leave partial outputs
         # that the skip-resume logic would trust on the next run
@@ -748,12 +825,9 @@ class RufusPipeline:
                 open(m2_path + ".tmp", "w") as f2:
             for names, tensors in self._prefetch(
                     self._pair_batches(progress_path), depth=2):
-                r1, q1, l1, r2, q2, l2 = (self._to_device(t) for t in tensors)
-                keep, _, _ = filter_pairs(r1, q1, l1, r2, q2, l2, table,
-                                          cfg.k, cfg.filter_min_q,
-                                          cfg.filter_k_threshold, index)
+                keep = self._keep_mask(tensors, hl)
                 host = [t.numpy() for t in tensors]
-                for i in np.flatnonzero(keep.cpu().numpy()):
+                for i in np.flatnonzero(keep):
                     self._write_kept(f1, names, i, *host[:3])
                     self._write_kept(f2, names, i, *host[3:])
                     kept += 1
@@ -784,16 +858,13 @@ class RufusPipeline:
                 cfg.subject, self.ref_contigs()))
         else:
             batches = self._bam_batches(single=True)
-        table, index = self._hashlist_table(hl_path)
+        hl = self._hashlist_table(hl_path)
         kept = reads = 0
         with open(out_path + ".tmp", "w") as out:
             for names, tensors in self._prefetch(batches, depth=2):
-                r, q, l = (self._to_device(t) for t in tensors)
-                keep, _ = filter_single(r, q, l, table, cfg.k,
-                                        cfg.filter_min_q,
-                                        cfg.filter_k_threshold, index)
+                keep = self._keep_mask(tensors, hl)
                 host = [t.numpy() for t in tensors]
-                for i in np.flatnonzero(keep.cpu().numpy()):
+                for i in np.flatnonzero(keep):
                     self._write_kept(out, names, i, *host)
                     kept += 1
                 reads += len(names)
@@ -1014,8 +1085,9 @@ class RufusPipeline:
                     f.write(f"{s} {c}\n")
 
         # genotype pulls: each tab's k-mers canonicalized once and searched
-        # in every sample's device table (the reference backgrounds one
-        # `jellyfish query` a sample, Overlap.shorter.sh:265-303)
+        # in every sample's device table, routed to the owner shards on
+        # more than one (the reference backgrounds one `jellyfish query` a
+        # sample, Overlap.shorter.sh:265-303)
         devs = self._pull_tables(tables)
         rec["pulled"] = 0  # k-mers looked up in every sample's table
         rec["found"] = [0] * len(devs)  # of them, present in each sample
@@ -1030,7 +1102,7 @@ class RufusPipeline:
             strs = [line.split()[0] for line in open(tab_path)]
             km = codec.strs_to_kmers([codec.canonical_str(s) for s in strs],
                                      cfg.k) if strs else []
-            cnts_all = query_counts(devs, km)
+            cnts_all = sharded.query_counts(devs, km)
             rec["pulled"] += len(strs)
             for t, (out, cnts) in enumerate(zip(out_paths, cnts_all)):
                 rec["found"][t] += int(np.count_nonzero(cnts))

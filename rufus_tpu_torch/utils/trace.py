@@ -2,9 +2,11 @@
 reference's wall timers and reads/sec prints, RUFUS.Filter.cpp:178-183).
 
 A pipeline run appends one JSON object per stage to its trace file: wall
-and CPU seconds, resident set size and, on a CUDA device, the peak of
-device memory allocated by PyTorch during the stage. `malloc_trim` and
-`memory_attribution` are the JAX package's (its utils/trace.py).
+and CPU seconds, resident set size, the number of shards and, on CUDA
+devices, the peak of device memory allocated by PyTorch during the stage
+(the largest of its cards', and each card's when there are several).
+`malloc_trim` and `memory_attribution` are the JAX package's (its
+utils/trace.py).
 """
 
 from __future__ import annotations
@@ -117,33 +119,38 @@ class Throughput:
 
 
 class StageTimer:
-    """Per-stage wall/CPU seconds and memory; `device` is the torch device
-    whose peak allocation each stage records (CUDA only; the peak counter
-    is reset at each stage's start)."""
+    """Per-stage wall/CPU seconds and memory; `devices` are the torch
+    devices (the mesh's distinct cards) whose peak allocation each stage
+    records (CUDA only; the peak counters are reset at each stage's
+    start), `shards` the mesh's shards."""
 
-    def __init__(self, log_path: str | None = None, device=None):
+    def __init__(self, log_path: str | None = None, devices=(),
+                 shards: int = 1):
         self.stages: list[dict] = []
         self.log_path = log_path
-        self.device = device
+        self.cards = [d for d in devices if d.type == "cuda"]
+        self.shards = shards
 
     @contextmanager
     def stage(self, name: str, **meta):
         import torch
 
         banner(name)
-        cuda = self.device is not None and self.device.type == "cuda"
-        if cuda:
-            torch.cuda.synchronize(self.device)
-            torch.cuda.reset_peak_memory_stats(self.device)
+        for d in self.cards:
+            torch.cuda.synchronize(d)
+            torch.cuda.reset_peak_memory_stats(d)
         w0, c0 = time.perf_counter(), time.process_time()
-        rec = {"stage": name, **meta}
+        rec = {"stage": name, "shards": self.shards, **meta}
         try:
             yield rec
         finally:
-            if cuda:
-                torch.cuda.synchronize(self.device)
-                rec["device_peak_bytes"] = torch.cuda.max_memory_allocated(
-                    self.device)
+            for d in self.cards:
+                torch.cuda.synchronize(d)
+            peaks = [torch.cuda.max_memory_allocated(d) for d in self.cards]
+            if peaks:
+                rec["device_peak_bytes"] = max(peaks)
+            if len(peaks) > 1:
+                rec["device_peak_bytes_by_card"] = peaks
             rec["wall_s"] = round(time.perf_counter() - w0, 3)
             rec["cpu_s"] = round(time.process_time() - c0, 3)
             rec["rss_mb"] = round(rss_mb(), 1)

@@ -723,7 +723,7 @@ def test_spilled_slice_on_card_equals_resident_slice_on_cpu(tmp_path, mode):
         table.PENDING_BYTES + table.TABLE_BYTES, 2 * table.MERGE_BYTES)
     over = {"lsm": dict(spill_tables="on", hbm_budget_gb=budget / 2**30,
                         batch_size=512),
-            "multipass": dict(count_passes=3)}[mode]
+            "multipass": dict(count_passes=3, sharded="off")}[mode]
     outs = {}
     for device, kw in (("cuda", over), ("cpu", {})):
         wd = tmp_path / device
@@ -750,3 +750,63 @@ def test_spilled_slice_on_card_equals_resident_slice_on_cpu(tmp_path, mode):
         else:
             assert (outs["cuda"] / n).read_bytes() == \
                 (outs["cpu"] / n).read_bytes(), n
+
+
+# -- the sharded chain -----------------------------------------------------
+
+
+@pytest.mark.parametrize("layout", ["one_card", "every_card"])
+def test_sharded_full_run_on_card_equals_cpu(tmp_path, monkeypatch, layout):
+    """The trio to FINAL.vcf on four shards of cuda:0, or on a shard a card
+    over every card (two or more), against the 1-shard run on the CPU:
+    every file but the trace, byte for byte (one directory in turn, the
+    interpret date pinned)."""
+    import types
+
+    import rufus_tpu_torch.interpret.driver as interpret_driver
+    from rufus_tpu_torch.parallel import make_mesh
+
+    _card()
+    if layout == "one_card":
+        mesh = make_mesh(4, "cuda:0")
+    elif torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices or more")
+    else:
+        mesh = make_mesh()
+    monkeypatch.setattr(interpret_driver, "time",
+                        types.SimpleNamespace(time=lambda: 1700000000))
+    data = synthetic.write_trio(str(tmp_path / "fastq"), genome_bp=20_000,
+                                coverage=30, n_denovo=4, seed=3)
+    ref = tmp_path / "ref.fa"
+    ref.write_text(">1\n" + data["genome"].tobytes().decode() + "\n")
+    c, m, f = data["child"], data["mother"], data["father"]
+    work = tmp_path / "work"
+    launches = cuda_filter.window_hits.launches
+    for device, mesh_ in (("cuda", mesh), ("cpu", None)):
+        pipe = RufusPipeline(RufusConfig(
+            subject=",".join(c), controls=[",".join(m), ",".join(f)], k=25,
+            workdir=str(work), exome=True, min_cov=5, ref=str(ref),
+            fastq_a=c[0], fastq_b=c[1], batch_size=1024, device=device),
+            mesh=mesh_)
+        pipe.run()
+        if device == "cuda":
+            count_rec = pipe.trace.stages[0]
+        os.rename(work, tmp_path / device)
+    assert count_rec["shards"] == mesh.n
+    assert all(v > 0 for v in count_rec["exchanged_keys"].values())
+    assert cuda_filter.window_hits.launches > launches
+    cuda, cpu = tmp_path / "cuda", tmp_path / "cpu"
+    names = sorted(os.path.relpath(os.path.join(r, n), cpu)
+                   for r, _, ns in os.walk(cpu) for n in ns
+                   if n != "trace.jsonl")
+    assert names == sorted(os.path.relpath(os.path.join(r, n), cuda)
+                           for r, _, ns in os.walk(cuda) for n in ns
+                           if n != "trace.jsonl")
+    assert any(n.endswith(".FINAL.vcf") for n in names)
+    for n in names:
+        if n.endswith(".npz"):
+            za, zb = np.load(cuda / n), np.load(cpu / n)
+            for key in zb.files:
+                np.testing.assert_array_equal(za[key], zb[key])
+        else:
+            assert (cuda / n).read_bytes() == (cpu / n).read_bytes(), n

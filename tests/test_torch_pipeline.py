@@ -12,6 +12,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from rufus_tpu.pipeline import RufusConfig as JaxConfig
 from rufus_tpu.pipeline import RufusPipeline as JaxPipeline
@@ -19,6 +20,18 @@ from rufus_tpu_torch import synthetic
 from rufus_tpu_torch.pipeline import RufusConfig, RufusPipeline
 
 K = 25
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's plain kernels on one torch thread while this module runs:
+    the suite runs several workers at once, and torch's intra-op threads
+    then wait at each op's barrier for one another's scheduler slices (a
+    trio that counts in under a second alone took minutes so)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -91,18 +104,26 @@ def test_slice_is_batch_size_independent(trio, jax_run, tmp_path):
 
 
 def test_unported_options_raise(trio, tmp_path):
-    """Multi-GPU raises NotImplementedError (the memory model, ported,
-    no longer does: tests/test_torch_memory.py runs it); an unknown stop
-    stage or spill_tables, a filter with neither -q1/-q2 nor a BAM/CRAM
-    subject, and alignment (through contig_align or the full run) without
-    a reference raise ValueError."""
+    """Multipass counting on more than one shard raises
+    NotImplementedError, as in the JAX package (sharded "on" runs:
+    tests/test_torch_sharded.py; the memory model too:
+    tests/test_torch_memory.py); a mesh of more cards than exist raises
+    ValueError (on the CPU: two cards with no CUDA); an unknown stop stage
+    or spill_tables, a filter with neither -q1/-q2 nor a BAM/CRAM subject,
+    and alignment (through contig_align or the full run) without a
+    reference raise ValueError."""
+    from rufus_tpu_torch.parallel import make_mesh
+
     d, data = trio
-    for over in ({"single_end": True, "sharded": "on"}, {"sharded": "on"},
-                 {"count_passes": 2, "sharded": "on"},
-                 {"spill_tables": "on", "sharded": "on"}):
-        cfg = RufusConfig(**_kwargs(data, tmp_path, device="cpu", **over))
-        with pytest.raises(NotImplementedError):
-            RufusPipeline(cfg).run()
+    cfg = RufusConfig(**_kwargs(data, tmp_path, device="cpu", count_passes=2,
+                                sharded="on"))
+    with pytest.raises(NotImplementedError):
+        RufusPipeline(cfg, mesh=make_mesh(2, "cpu")).run()
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError):
+            make_mesh(2, "cuda")
+    with pytest.raises(ValueError):
+        make_mesh(torch.cuda.device_count() + 1, "cuda")
     for over in ({"k": 32}, {"fastq_a": ""}, {"stop_after": "contig_align"},
                  {"stop_after": ""}, {"stop_after": "interpret"},
                  {"spill_tables": "sometimes"}):
