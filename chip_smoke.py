@@ -58,10 +58,36 @@ Phases, each printing one JSON line; any failure exits non-zero:
              the launches, and which other files of the workdir differ (not
              a gate). Four shards on one card show placement and exactness,
              not scaling across cards;
+   hashroute - the hash route on four shards of cuda:0: owner_hash on
+             the card must equal host_owners on a million random keys
+             (n 2, 3, 4, 8); the trio's FASTQ batches, decoded first into
+             pinned memory, are counted three ways, each timed on its own:
+             one shard (DeviceKmerTable), the range route (four shards,
+             local_count_step) and, with the launch counts set to 0, the
+             hash route (sharded_count_step every batch into
+             hash-partitioned tables); then the subtract and the pulls of
+             the contig stage's k-mers by hash owner. Each sample's
+             to_host table must equal the 1-shard run's .table.npz, the
+             HashList its HashList file, the pulls the host query of the
+             saved tables, and encode_canon and compact_runs must launch.
+             Prints the three counts' seconds beside the pipeline's count
+             walls (1 shard, and 4 shards from the sharded phase), the
+             pairs exchanged, the largest and mean shard and the launches;
+   multiproc - tools.multiproc_smoke on the visible cards (an NCCL rank a
+             card, two shards each), then the trio on a process mesh: one
+             NCCL rank a visible card, spawned, four shards in all (one
+             card: one rank of four shards), each rank decoding the FASTQ
+             files and counting its rows of every batch (the range route),
+             subtracting, filtering its rows of the subject's pairs and
+             pulling its share of the contig stage's k-mers. Every rank's
+             tables, HashList and pulls must equal the 1-shard run's, the
+             ranks' kept pairs its Mutations.Mate1 names, and each rank's
+             own encode_canon, compact_runs and window_hits must launch.
+             Prints each rank's launches and seconds;
    regenotype - a fresh RufusPipeline on the slice's workdir re-genotypes
              its contigs against the parents' saved tables (.table.npz):
              its FINAL.vcf must equal the run's in every line but
-             ##fileDate;
+             ##fileDate, and its FINAL.vcf.gz must inflate to it;
    memory  - the memory model: first the device bytes a key of a fold
              (fold_bytes line: a batch folded into an empty table, then a
              slice of the next folded into that table, by
@@ -157,6 +183,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
              the sorted input, and timed beside the plain version. No single
              PyTorch call gives block-sorted runs in bucket order, so it
              has no library yardstick.
+
+8. scaling - the scaling tool (python -m rufus_tpu_torch.tools.scaling)
+             on a shard a visible card, or with one card on 1, 2 and 4
+             shards of cuda:0: it prints its own JSON line (count, filter
+             and pull rates and the count's phases of both routes), then
+             a scaling line sums it up.
 
 Then the kernels line, the nvidia-smi name/power-limit line, and last the
 {"ok": true, "device": ...} line.
@@ -321,14 +353,15 @@ def _sam_intervals(path):
 
 
 def slice_config(data, workdir):
-    """The slice's configuration: the full run from the FASTQ files."""
+    """The slice's configuration: the full run from the FASTQ files, on
+    one shard of cuda:0 however many cards there are."""
     from rufus_tpu_torch.pipeline import RufusConfig
 
     c, m, f = data["child"], data["mother"], data["father"]
     return RufusConfig(subject=",".join(c), controls=[",".join(m), ",".join(f)],
                        k=K, batch_size=BATCH, read_pad=READ_PAD,
                        workdir=workdir, fastq_a=c[0], fastq_b=c[1],
-                       ref=data["ref"], device="cuda")
+                       ref=data["ref"], device="cuda", sharded="off")
 
 
 def vcf_rows(path):
@@ -474,11 +507,18 @@ def phase_regenotype(data, workdir):
     final = pipe.regenotype(tables)
     torch.cuda.synchronize()
     after = undated(final)
+    import gzip
+
+    with gzip.open(final + ".gz", "rb") as f, open(final, "rb") as g:
+        gz_equal = f.read() == g.read()
     emit({"phase": "regenotype", "wall_s": time.perf_counter() - t0,
           "final_rows": sum(not line.startswith("#") for line in after),
-          "equal": after == before})
+          "equal": after == before, "gz_equal": gz_equal})
     if after != before:
         raise AssertionError("regenotype's FINAL.vcf differs from the run's")
+    if not gz_equal or not os.path.exists(final + ".gz.tbi"):
+        raise AssertionError("regenotype left a FINAL.vcf.gz that does not "
+                             "inflate to its FINAL.vcf, or no .tbi")
 
 
 
@@ -728,6 +768,7 @@ def phase_sharded(data, work, fastq_wd, fastq_info):
     try:
         os.makedirs(fastq_wd)
         cfg = slice_config(data, fastq_wd)
+        cfg.sharded = "on"
         for ext in (".7.7.model", ".7.7.dist", ".7.7.prob"):
             shutil.copy(os.path.join(one, cfg.subject_stub + ".Jhash.histo"
                                      + ext), fastq_wd)
@@ -818,6 +859,309 @@ def phase_sharded(data, work, fastq_wd, fastq_info):
     return info
 
 
+def fastq_batches(paths):
+    """A sample's count batches, as the count stage reads them: each FASTQ
+    file in turn, (BATCH, READ_PAD) uint8 host tensors."""
+    import numpy as np
+
+    from rufus_tpu_torch.io import native
+
+    lens = np.zeros(BATCH, np.int32)
+    for path in paths:
+        with native.NativeFastq(path) as nf:
+            while True:
+                seq = torch.empty((BATCH, READ_PAD), dtype=torch.uint8)
+                n = len(nf.read_batch(BATCH, READ_PAD,
+                                      out=(seq.numpy(), lens))[0])
+                if n == 0:
+                    break
+                yield seq[:n]
+
+
+def trio_params(data, workdir):
+    """The slice's stubs, floors and subtract parameters (its ModelDist
+    cutoff and depth, read as stage_model reads them) and its HashList's
+    keys."""
+    from rufus_tpu_torch.io import hashlist as hio
+
+    cfg = slice_config(data, workdir)
+    with open(cfg.wpath(cfg.subject_stub + ".Jhash.histo.7.7.model")) as f:
+        lines = f.read().split("\n")
+    hl = [n for n in os.listdir(workdir) if n.endswith(".HashList")][0]
+    return {"stubs": [cfg.subject_stub] + [cfg.control_stub(c)
+                                           for c in cfg.controls],
+            "lows": [cfg.subject_low_k, cfg.par_low_k, cfg.par_low_k],
+            "subtract": (cfg.merge_min, int(lines[1]), int(lines[3]) * 5),
+            "hashlist": hio.hashlist_keys(os.path.join(workdir, hl), K)}
+
+
+def phase_hashroute(data, workdir, sharded_info):
+    """The trio's count by the hash route (sharded_count_step, the
+    hash-partitioned ShardedKmerTable) on four shards of cuda:0, then the
+    subtract and the pulls by hash owner, held to the 1-shard run in
+    workdir (see the module's docstring)."""
+    import numpy as np
+
+    from rufus_tpu_torch.ops import codec, count
+    from rufus_tpu_torch.ops.table import DeviceKmerTable, count_step
+    from rufus_tpu_torch.parallel import (ShardedKmerTable, host_owners,
+                                          local_count_step, make_mesh,
+                                          owner_hash, sharded_count_step,
+                                          sharded_query_multi,
+                                          sharded_subtract_step)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    p = trio_params(data, workdir)
+    mesh = make_mesh(4, "cuda:0")
+    rng = np.random.default_rng(0)
+    keys = rng.integers(0, 1 << 62, 1 << 20, dtype=np.uint64)
+    keys[::97] = codec.SENTINEL_U64
+    owner_ok = all(np.array_equal(owner_hash(torch.from_numpy(
+        codec.keys_u64_to_i64(keys)).cuda(), n).cpu().numpy(),
+        host_owners(keys, n)) for n in (2, 3, 4, 8))
+    t0 = time.perf_counter()
+    streams = [[b.pin_memory() for b in fastq_batches(data[s])]
+               for s in ("child", "mother", "father")]
+    decode_s = time.perf_counter() - t0
+
+    def count_trio(route):
+        """The three samples' tables on `route`, their floors applied, and
+        the seconds the counts took (the batches already decoded)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tables, splitters = [], None
+        for stream, low in zip(streams, p["lows"]):
+            if route == "one_shard":
+                t = DeviceKmerTable(K, "cuda")
+                for b in stream:
+                    t.fold_batch(count_step(b.to("cuda", non_blocking=True),
+                                            K))
+            else:
+                t = ShardedKmerTable(mesh, K, splitters=splitters,
+                                     partition=route)
+                for b in stream:
+                    if route == "hash":
+                        ks, cs, _, _ = sharded_count_step(mesh, b, K,
+                                                          t.stats)
+                        t.fold_batch(ks, cs)
+                    else:
+                        t.fold_batch(local_count_step(mesh, b, K))
+            t.flush()
+            splitters = getattr(t, "splitters", None)
+            t.apply_lower_count(low)
+            tables.append(t)
+        torch.cuda.synchronize()
+        return tables, time.perf_counter() - t0
+
+    kernels = _kernels()
+    seconds = {}
+    for route in ("one_shard", "range"):
+        tables, seconds[route] = count_trio(route)
+        for t in tables:
+            t.release()
+        del tables
+    for fn in kernels.values():
+        fn.launches = 0
+    tables, seconds["hash"] = count_trio("hash")
+    t0 = time.perf_counter()
+    mk, mc = sharded_subtract_step(tables[0], tables[1:], *p["subtract"])
+    torch.cuda.synchronize()
+    subtract_s = time.perf_counter() - t0
+    km = tab_kmers(workdir)
+    t0 = time.perf_counter()
+    pulls = sharded_query_multi(tables, km)
+    pulls_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    differ = []
+    hosts = []
+    for stub, t in zip(p["stubs"], tables):
+        want = count.KmerTable.load(os.path.join(workdir, stub + ".table.npz"))
+        got = t.to_host()
+        hosts.append(want)
+        if not (np.array_equal(got.keys, want.keys)
+                and np.array_equal(got.counts, want.counts)):
+            differ.append(stub + ".table.npz")
+    if not np.array_equal(codec.keys_i64_to_u64(mk.cpu().numpy()),
+                          p["hashlist"]):
+        differ.append("HashList")
+    if not np.array_equal(pulls, np.stack([h.query(km) for h in hosts])):
+        differ.append("pulls")
+    info = {"phase": "hashroute", "shards": mesh.n,
+            "devices": [str(d) for d in mesh.devices],
+            "decode_s": decode_s, "count_s": seconds,
+            "pipeline_count_wall_s": {
+                "one_shard": sharded_info["stage_wall_s"]["count"][1],
+                "range_four_shards": sharded_info["stage_wall_s"]["count"][0]},
+            "exchanged_pairs": [t.stats["exchanged_keys"] for t in tables],
+            "shard_keys_max": [max(t.shard_keys()) for t in tables],
+            "shard_keys_mean": [sum(t.shard_keys()) / mesh.n
+                                for t in tables],
+            "subtract_s": subtract_s, "hashlist_keys": int(mk.numel()),
+            "pulls_s": pulls_s, "pulled": len(km), "launches": launches,
+            "owner_hash_equal": owner_ok, "differ": differ}
+    emit(info)
+    for t in tables:
+        t.release()
+    if differ or not owner_ok:
+        raise AssertionError(f"the hash route differs from the 1-shard run "
+                             f"in {differ}, or owner_hash from host_owners")
+    if launches["encode_canon"] <= 0 or launches["compact_runs"] <= 0:
+        raise AssertionError(f"the hash route never launched a kernel of "
+                             f"its path: {launches}")
+    return info
+
+
+def multiproc_rank(mesh, data, workdir):
+    """One NCCL rank of the multiproc phase: the trio from the FASTQ files
+    (its rows of every batch) through the count (the range route, the
+    pipeline's), the subtract, the filter of the subject's pairs and the
+    pulls of its share of the contig stage's k-mers, each held to the
+    1-shard run in workdir. Returns what it checked and its launches."""
+    import numpy as np
+
+    from rufus_tpu_torch.io import native
+    from rufus_tpu_torch.ops import codec, count
+    from rufus_tpu_torch.parallel import (ShardedKmerTable, local_count_step,
+                                          local_rows, replicate_hashlist,
+                                          sharded_filter_step,
+                                          sharded_query_multi,
+                                          sharded_subtract_step)
+
+    kernels = _kernels()
+    for fn in kernels.values():
+        fn.launches = 0
+    p = trio_params(data, workdir)
+    cfg = slice_config(data, workdir)
+    seconds = {}
+    t0 = time.perf_counter()
+    tables, splitters = [], None
+    for s, low in zip(("child", "mother", "father"), p["lows"]):
+        t = ShardedKmerTable(mesh, K, splitters=splitters)
+        for b in fastq_batches(data[s]):
+            t.fold_batch(local_count_step(mesh, local_rows(mesh, b), K))
+        t.flush()
+        splitters = t.splitters
+        t.apply_lower_count(low)
+        tables.append(t)
+    torch.cuda.synchronize()
+    seconds["count"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mk, _ = sharded_subtract_step(tables[0], tables[1:], *p["subtract"])
+    seconds["subtract"] = time.perf_counter() - t0
+    hl = replicate_hashlist(mesh, mk, K)
+    kept = []
+    t0 = time.perf_counter()
+    scratch = [np.empty((BATCH, 1024), np.uint8) if i % 3 < 2
+               else np.empty(BATCH, np.int32) for i in range(6)]
+    with native.NativeFastqPairs(cfg.fastq_a, cfg.fastq_b) as fp:
+        while True:
+            names, *arrays = fp.read_pair_batch(BATCH, 1024, out=scratch)
+            if len(names) == 0:
+                break
+            mine = local_rows(mesh, np.arange(len(names)))
+            mates = [[torch.from_numpy(np.ascontiguousarray(
+                a[mine][:, :READ_PAD] if a.ndim == 2 else a[mine]))
+                for a in arrays[m:m + 3]] for m in (0, 3)]
+            keep = sharded_filter_step(mesh, mates, hl, K, cfg.filter_min_q,
+                                       cfg.filter_k_threshold).numpy()
+            kept += [names[int(i)] for i in mine[keep]]
+    seconds["filter"] = time.perf_counter() - t0
+    km = tab_kmers(workdir)
+    t0 = time.perf_counter()
+    pulls = sharded_query_multi(tables, local_rows(mesh, km))
+    seconds["pulls"] = time.perf_counter() - t0
+    differ = []
+    hosts = []
+    for stub, t in zip(p["stubs"], tables):
+        want = count.KmerTable.load(os.path.join(workdir, stub + ".table.npz"))
+        got = t.to_host()
+        hosts.append(want)
+        if not (np.array_equal(got.keys, want.keys)
+                and np.array_equal(got.counts, want.counts)):
+            differ.append(stub + ".table.npz")
+    if not np.array_equal(codec.keys_i64_to_u64(mk.cpu().numpy()),
+                          p["hashlist"]):
+        differ.append("HashList")
+    if not np.array_equal(pulls, np.stack([h.query(local_rows(mesh, km))
+                                           for h in hosts])):
+        differ.append("pulls")
+    return {"differ": np.array(differ, dtype=str),
+            "kept": np.array(kept, dtype=str),
+            "launches": np.array([fn.launches for fn in kernels.values()]),
+            "seconds": np.array([seconds[k] for k in
+                                 ("count", "subtract", "filter", "pulls")]),
+            "shards": np.array([mesh.first, mesh.local])}
+
+
+def phase_multiproc(data, workdir):
+    """tools.multiproc_smoke on the visible cards, then the trio on a
+    process mesh: one NCCL rank a visible card, four shards in all (one
+    card: one rank of four shards), held to the 1-shard run in workdir
+    (see the module's docstring)."""
+    import numpy as np
+
+    from rufus_tpu_torch.tools import multiproc_smoke
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    multiproc_smoke.main([])
+    smoke_s = time.perf_counter() - t0
+    world = torch.cuda.device_count()
+    local = max(1, 4 // world)
+    t0 = time.perf_counter()
+    ranks = multiproc_smoke.spawn_ranks(multiproc_rank, world, "cuda", local,
+                                        (data, workdir), timeout=600)
+    wall = time.perf_counter() - t0
+    m1 = [n for n in os.listdir(workdir) if n.endswith(".Mutations.Mate1"
+                                                       ".fastq")][0]
+    with open(os.path.join(workdir, m1)) as f:
+        want = sorted(line[1:].rstrip("\n")
+                      for i, line in enumerate(f) if i % 4 == 0)
+    got = sorted(str(n) for r in ranks for n in r["kept"])
+    names = list(_kernels())
+    info = {"phase": "multiproc", "smoke_s": smoke_s, "ranks": world,
+            "shards": world * local, "wall_s": wall,
+            "per_rank": [{"first_shard": int(r["shards"][0]),
+                          "local_shards": int(r["shards"][1]),
+                          "launches": dict(zip(names,
+                                               r["launches"].tolist())),
+                          "seconds": dict(zip(
+                              ("count", "subtract", "filter", "pulls"),
+                              r["seconds"].tolist())),
+                          "kept_pairs": len(r["kept"]),
+                          "differ": r["differ"].tolist()} for r in ranks],
+            "kept_pairs": len(got), "kept_equal": got == want}
+    emit(info)
+    if not info["kept_equal"] or any(len(r["differ"]) for r in ranks):
+        raise AssertionError("the process mesh's trio differs from the "
+                             "1-shard run")
+    if any(int(min(r["launches"])) <= 0 for r in ranks):
+        raise AssertionError("a kernel of the path never launched on a rank")
+    return info
+
+
+def phase_scaling(work):
+    """The scaling tool on the visible cards, or on 1, 2 and 4 shards of
+    cuda:0 with one card; it prints its own line."""
+    from rufus_tpu_torch.tools import scaling
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = ["--out", os.path.join(work, "scaling.json")]
+    if torch.cuda.device_count() < 2:
+        argv += ["--shards-on", "cuda:0"]
+    t0 = time.perf_counter()
+    out = scaling.main(argv)
+    emit({"phase": "scaling", "seconds": time.perf_counter() - t0,
+          "layout": out["layout"],
+          "count_reads_per_s": {r["shards"]: {
+              route: v["count_reads_per_s"]
+              for route, v in r["routes"].items()} for r in out["results"]}})
+    return out
+
+
 def phase_bam(data, work, fastq_wd, fastq_info, seed):
     """The trio from BAMs through the filter, paired and single-end, held
     to the FASTQ run in fastq_wd (see the module's docstring)."""
@@ -846,7 +1190,8 @@ def phase_bam(data, work, fastq_wd, fastq_info, seed):
         return RufusConfig(subject=bams["child"],
                            controls=[bams["mother"], bams["father"]], k=K,
                            batch_size=BATCH, read_pad=READ_PAD,
-                           workdir=workdir, device="cuda", **over)
+                           workdir=workdir, device="cuda", sharded="off",
+                           **over)
 
     kernels = _kernels()
     for fn in kernels.values():
@@ -1107,6 +1452,20 @@ def sw_row(shapes, seed, int_rate, plain_iters=1):
             "ops_max": int(res[:, 6].max()), "device_us": device_us(call)}
 
 
+def tab_kmers(workdir):
+    """The canonical k-mers of the contig stage's tabs (uint64), the
+    genotype pulls' queries."""
+    from rufus_tpu_torch.ops import codec
+
+    inter = os.path.join(workdir, "Intermediates")
+    strs = []
+    for n in sorted(os.listdir(inter)):
+        if n.endswith(".Jhash.tab"):
+            with open(os.path.join(inter, n)) as fh:
+                strs += [line.split()[0] for line in fh]
+    return codec.strs_to_kmers([codec.canonical_str(s) for s in strs], K)
+
+
 def phase_pulls(workdir):
     """The genotype pulls of the slice's contig stage (ops/query.py, one
     torch.searchsorted a table) on its own tab k-mers against the three
@@ -1115,19 +1474,13 @@ def phase_pulls(workdir):
     import numpy as np
 
     from rufus_tpu_torch.convert import table_from_numpy
-    from rufus_tpu_torch.ops import codec, count
+    from rufus_tpu_torch.ops import count
     from rufus_tpu_torch.ops.query import query_counts
 
     names = sorted(os.listdir(workdir))
     hosts = [count.KmerTable.load(os.path.join(workdir, n))
              for n in names if n.endswith(".table.npz")]
-    inter = os.path.join(workdir, "Intermediates")
-    strs = []
-    for n in sorted(os.listdir(inter)):
-        if n.endswith(".Jhash.tab"):
-            with open(os.path.join(inter, n)) as fh:
-                strs += [line.split()[0] for line in fh]
-    km = codec.strs_to_kmers([codec.canonical_str(s) for s in strs], K)
+    km = tab_kmers(workdir)
     devs = [table_from_numpy(t.keys, t.counts, "cuda", k=K) for t in hosts]
     got = query_counts(devs, km)
     want = np.stack([t.query(km) for t in hosts])
@@ -1381,7 +1734,9 @@ def main():
         data = phase_data(os.path.join(work, "fastq"), args.genome_mbp,
                           args.seed)
         sl, hl_path = phase_slice(data, os.path.join(work, "run"))
-        phase_sharded(data, work, os.path.join(work, "run"), sl)
+        sharded = phase_sharded(data, work, os.path.join(work, "run"), sl)
+        phase_hashroute(data, os.path.join(work, "run"), sharded)
+        phase_multiproc(data, os.path.join(work, "run"))
         phase_regenotype(data, os.path.join(work, "run"))
         phase_memory(data, work, os.path.join(work, "run"), sl)
         phase_bam(data, work, os.path.join(work, "run"), sl, args.seed)
@@ -1394,6 +1749,7 @@ def main():
                               for _ in range(c)])
         phase_slice_busy(sl, rows)
         rows.append(phase_radix(data, work, args.seed))
+        phase_scaling(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

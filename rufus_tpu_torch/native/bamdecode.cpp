@@ -37,11 +37,13 @@ struct BamRecordView {
   int32_t pos;
   uint16_t flag;
   uint8_t mapq;
-  uint32_t name_off;   // offsets into the arena
+  // offsets into the arena: 64-bit, since the arena passes 4 GiB at about
+  // 14 M records of 150 bases
+  uint64_t name_off;
   uint32_t name_len;
-  uint32_t seq_off;    // decoded ASCII bases in arena
+  uint64_t seq_off;    // decoded ASCII bases in arena
   uint32_t seq_len;
-  uint32_t qual_off;   // phred+33 in arena
+  uint64_t qual_off;   // phred+33 in arena
 };
 
 struct BamFile {
@@ -164,12 +166,12 @@ bool parse_bam(BamFile* bf) {
     int32_t l_seq;
     memcpy(&l_seq, p + 16, 4);
     const uint8_t* q = p + 32;
-    r.name_off = (uint32_t)bf->arena.size();
+    r.name_off = bf->arena.size();
     r.name_len = l_read_name - 1;
     bf->arena.insert(bf->arena.end(), q, q + r.name_len);
     q += l_read_name;
     q += 4ull * n_cigar;
-    r.seq_off = (uint32_t)bf->arena.size();
+    r.seq_off = bf->arena.size();
     r.seq_len = (uint32_t)l_seq;
     for (int32_t i = 0; i < l_seq; i++) {
       uint8_t b = q[i / 2];
@@ -177,7 +179,7 @@ bool parse_bam(BamFile* bf) {
       bf->arena.push_back((uint8_t)SEQ_CODES[code]);
     }
     q += (l_seq + 1) / 2;
-    r.qual_off = (uint32_t)bf->arena.size();
+    r.qual_off = bf->arena.size();
     for (int32_t i = 0; i < l_seq; i++) {
       uint8_t qq = q[i];
       bf->arena.push_back((uint8_t)(qq == 0xFF ? '*' : qq + 33));

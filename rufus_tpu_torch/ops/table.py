@@ -222,10 +222,16 @@ def make_splitters(keys, n_parts: int, sample: int = 1 << 16) -> np.ndarray:
     for a in arrs:
         rows = a if isinstance(a, (list, tuple)) else [a]
         stride = max(1, rows[0].shape[-1] // max(1, per))
-        for r in rows:
-            r = r[..., ::stride]
-            pools.append((r.cpu().numpy() if isinstance(r, torch.Tensor)
-                          else np.asarray(r)).ravel())
+        pools += [r[..., ::stride] for r in rows]
+    return splitters_of_sample(pools, n_parts, sample)
+
+
+def splitters_of_sample(pools: list, n_parts: int,
+                        sample: int = 1 << 16) -> np.ndarray:
+    """make_splitters' quantiles of its strided samples, `pools` (key
+    tensors or arrays, in batch and row order)."""
+    pools = [(r.cpu().numpy() if isinstance(r, torch.Tensor)
+              else np.asarray(r)).ravel() for r in pools]
     ks = (np.concatenate(pools) if pools
           else np.empty(0)).astype(np.int64)
     ks = ks[ks != codec.SENTINEL]

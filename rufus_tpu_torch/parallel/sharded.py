@@ -1,38 +1,54 @@
-"""The sharded chain: a sample's k-mer table range-partitioned over a mesh
-of shards, and the count, subtract, filter and pull steps that run on it.
+"""The sharded chain: a sample's k-mer table partitioned over a mesh of
+shards, and the count, subtract, filter and pull steps that run on it.
 
-The port of the path that ``rufus_tpu/parallel/sharded.py`` runs for the
-JAX pipeline on more than one device, its local-aggregate count:
+The port of ``rufus_tpu/parallel/sharded.py``. A table is partitioned in
+one of its two ways:
 
-  count:    each shard encodes its contiguous slice of every read batch
-            and buffers the raw keys (no exchange a batch);
-  flush:    each shard sorts and compacts its buffer into sorted unique
-            (key, count) partials, cuts them at range splitters (quantiles
-            of a sample of the first batches; the partials are sorted, so
-            each shard's part is one slice) and sends each slice to its
-            owner, which folds what it receives into its table;
-  subtract: every sample's table shares the splitters, so the modified
-            merge is local to each shard, and the shards in order are the
-            sorted HashList;
+  range (the JAX pipeline's local-aggregate count, the default):
+            each shard encodes its contiguous slice of every read batch
+            and buffers the raw keys (no exchange a batch); a flush sorts
+            and compacts each shard's buffer into sorted unique (key,
+            count) partials, cuts them at range splitters (quantiles of a
+            sample of the first batches; the partials are sorted, so each
+            shard's part is one slice) and sends each slice to its owner,
+            which folds what it receives into its table. The shards in
+            order are the sorted table.
+  hash (``sharded_count_step``, the JAX package's per-batch route, kept
+            for streams that want each batch counted where it lands):
+            each shard encodes its slice, collapses adjacent equal keys
+            into run heads with run lengths, and sends each head to the
+            shard its owner hash names, every batch; each owner folds what
+            it receives. The shards hold disjoint keys in no order between
+            them.
+
+  subtract: every sample's table shares the partition, so the modified
+            merge is local to each shard; the mutant keys of the shards,
+            gathered (and sorted, under a hash partition), are the
+            HashList;
   filter:   the batch in contiguous slices over the shards, the HashList
             replicated;
-  pulls:    queries routed to their owner shard, bisected there in every
-            table, the answers routed back.
+  pulls:    queries routed to their owner shard (by splitters or by hash),
+            searched there in every table, the answers routed back.
 
-One controller drives the mesh, as in the JAX package. A ``ShardMesh`` is
-an ordered list of torch devices, one a shard: every visible card
+A ``ShardMesh`` is the shards one process holds, in shard order, and its
+place among the processes of a ``torch.distributed`` group. On one
+process (``make_mesh``) the mesh is every shard: every visible card
 (``make_mesh()`` on "cuda"), or several shards on one device
-(``make_mesh(4, "cuda:0")``, ``make_mesh(4, "cpu")``), the counterpart of
-the JAX tests' virtual devices. The collectives are tensor moves between
-shard devices issued in shard order (``all_to_all``, ``all_gather``,
-``replicate``): no-ops between shards of one device, peer copies between
-cards. Every shard's table is a ``DeviceKmerTable`` on its device, so each
-shard runs the same kernels as the single-device path.
+(``make_mesh(4, "cuda:0")``, ``make_mesh(4, "cpu")``, the counterpart of
+the JAX tests' virtual devices), and its collectives are tensor moves
+between shard devices issued in shard order. On a process mesh
+(``parallel/process.py``) each rank holds its own contiguous run of shards
+on its device, and the collectives go through the group: segment sizes
+first, then the segments, with ``all_to_all_single``. Every step takes the
+rank's own rows (``local_rows``), and every rank enters every collective,
+with an empty slice if it has nothing. Each shard's table is a
+``DeviceKmerTable`` on its device, so each shard runs the same kernels as
+the single-device path.
 
 What differs from the JAX package changes no table: segments are sized
-exactly, so there is no route capacity, overflow count or retry; splitters
-are int64 (keys stay below 2**62, where the int64 and uint64 orders agree);
-and the shards concatenate sorted, since the partition is by range.
+exactly, so there is no route capacity, overflow count or retry; keys and
+splitters are int64 (keys stay below 2**62, where the int64 and uint64
+orders agree).
 """
 
 from __future__ import annotations
@@ -41,29 +57,55 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops import codec, count
 from ..ops import query as _query
+from ..ops.cuda_count import encode_canon
 from ..ops.cuda_filter import hashlist_index, window_hits
 from ..ops.table import (PENDING_KEYS, DeviceKmerTable, count_step,
-                         make_splitters, subtract_step)
+                         make_splitters, splitters_of_sample, subtract_step)
 
 SPLIT_BATCHES = 16  # batches whose keys sample the splitters, at most
+SPLIT_SAMPLE = 1 << 16  # keys the splitters are the quantiles of, at most
+PARTITIONS = ("range", "hash")
+
+# The owner hash's multipliers (the JAX package's _MIX1.._MIX3), applied
+# to a key's 32-bit halves with 32-bit wrapping.
+_MIX1, _MIX2, _MIX3 = 0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D
+_LO32 = 0xFFFFFFFF
 
 
 @dataclass(frozen=True)
 class ShardMesh:
-    """The shards' devices, in shard order; a device may hold several."""
+    """The shards this process holds, their devices in shard order (a
+    device may hold several); on a process mesh, also its `rank` among the
+    `world` processes of `group`. Rank r holds shards [r*local, (r+1)*local)
+    of world*local."""
 
     devices: tuple
+    rank: int = 0
+    world: int = 1
+    group: object = None
 
     @property
-    def n(self) -> int:
+    def local(self) -> int:
+        """The shards this process holds."""
         return len(self.devices)
 
     @property
+    def n(self) -> int:
+        """The shards of the whole mesh."""
+        return self.world * len(self.devices)
+
+    @property
+    def first(self) -> int:
+        """The shard number of this process's first shard."""
+        return self.rank * len(self.devices)
+
+    @property
     def cards(self) -> list:
-        """The distinct devices, in shard order."""
+        """The distinct devices of this process, in shard order."""
         return list(dict.fromkeys(self.devices))
 
 
@@ -96,24 +138,103 @@ def make_mesh(n: int | None = None, device="cuda") -> ShardMesh:
     return ShardMesh((dev,) * (n or 1))
 
 
-# -- collectives: tensor moves between shard devices, in shard order -------
+def local_rows(mesh: ShardMesh, batch):
+    """This process's rows of a global batch (a tensor, array or list):
+    those of its shards when the batch is cut over every shard as
+    ``tensor_split`` cuts it, so that every shard gets the rows it gets on
+    a single-process mesh. A single-process mesh holds them all."""
+    if mesh.world == 1:
+        return batch
+    base, extra = divmod(len(batch), mesh.n)
+
+    def start(i):
+        return i * base + min(i, extra)
+
+    return batch[start(mesh.first):start(mesh.first + mesh.local)]
+
+
+# -- collectives: moves between shard devices, or through the group -------
 
 
 def all_to_all(mesh: ShardMesh, segments: list) -> list:
-    """segments[src][dst] on devices[src] -> received[dst]: the segments
-    for dst moved to devices[dst], in source order (JAX's all_to_all
-    concatenates in that order)."""
-    return [[segments[src][dst].to(d, non_blocking=True)
-             for src in range(mesh.n)] for dst, d in enumerate(mesh.devices)]
+    """segments[s][dst]: this process's shard s -> shard dst of the mesh,
+    tensors split along their first dimension. Returns, for each of this
+    process's shards, the segments sent to it, one a source shard in shard
+    order (JAX's all_to_all concatenates in that order), on its device.
+
+    On one process the segments are moved between devices. Between ranks
+    the segment sizes are exchanged first (one ``all_to_all_single`` of
+    int64 sizes: the host learns what it will receive), then the segments,
+    ``all_to_all_single`` with those split sizes."""
+    if mesh.world == 1:
+        return [[segments[src][dst].to(d, non_blocking=True)
+                 for src in range(mesh.n)]
+                for dst, d in enumerate(mesh.devices)]
+    loc, dev = mesh.local, mesh.devices[0]
+    # (rank q, source s, destination d) order: rank q's block, in the
+    # order it unpacks
+    send = [segments[s][q * loc + d] for q in range(mesh.world)
+            for s in range(loc) for d in range(loc)]
+    sizes = torch.tensor([t.shape[0] for t in send], dtype=torch.int64,
+                         device=dev)
+    got_sizes = torch.empty_like(sizes)
+    dist.all_to_all_single(got_sizes, sizes, group=mesh.group)
+    got = got_sizes.tolist()
+    flat = torch.cat(send)
+    out = flat.new_empty((sum(got), *flat.shape[1:]))
+    dist.all_to_all_single(
+        out, flat, output_split_sizes=got_sizes.view(mesh.world, -1)
+        .sum(1).tolist(), input_split_sizes=sizes.view(mesh.world, -1)
+        .sum(1).tolist(), group=mesh.group)
+    parts = out.split(got)
+    return [[parts[(p * loc + s) * loc + d] for p in range(mesh.world)
+             for s in range(loc)] for d in range(loc)]
 
 
-def all_gather(values: list) -> list:
-    """Each shard's small tensor read on the host, in shard order."""
-    return [v.tolist() for v in values]
+def all_gather(mesh: ShardMesh, values: list) -> list:
+    """One 1-D tensor a shard of this process -> every shard's, in shard
+    order. On one process that is `values`; between ranks the sizes are
+    gathered first, then the values, padded to the largest rank's, on this
+    process's device."""
+    if mesh.world == 1:
+        return list(values)
+    loc, dev = mesh.local, mesh.devices[0]
+    sizes = torch.tensor([v.numel() for v in values], dtype=torch.int64,
+                         device=dev)
+    all_sizes = [torch.empty_like(sizes) for _ in range(mesh.world)]
+    dist.all_gather(all_sizes, sizes, group=mesh.group)
+    sz = torch.cat(all_sizes).tolist()
+    per_rank = [sum(sz[r * loc:(r + 1) * loc]) for r in range(mesh.world)]
+    flat = torch.cat([v.reshape(-1).to(dev) for v in values])
+    padded = flat.new_zeros(max(per_rank))
+    padded[:flat.numel()] = flat
+    outs = [torch.empty_like(padded) for _ in range(mesh.world)]
+    dist.all_gather(outs, padded, group=mesh.group)
+    return [t for r, o in enumerate(outs)
+            for t in o[:per_rank[r]].split(sz[r * loc:(r + 1) * loc])]
+
+
+def all_max(mesh: ShardMesh, values: list) -> list:
+    """The elementwise max of small ints over the ranks: what every rank
+    decides a collective from. On one process, `values`."""
+    if mesh.world == 1:
+        return list(values)
+    t = torch.tensor(values, dtype=torch.int64, device=mesh.devices[0])
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
+    return t.tolist()
 
 
 def replicate(mesh: ShardMesh, t: torch.Tensor) -> list:
-    """A copy of `t` for each shard: one a device, shared by its shards."""
+    """A copy of `t` for each shard of this process: one a device, shared
+    by its shards. On a process mesh rank 0's `t` (1-D) is broadcast
+    through the group first."""
+    if mesh.world > 1:
+        dev = mesh.devices[0]
+        size = torch.tensor([t.numel()], dtype=torch.int64, device=dev)
+        dist.broadcast(size, 0, group=mesh.group)
+        t = (t.reshape(-1).to(dev).contiguous() if mesh.rank == 0
+             else t.new_empty(int(size), device=dev))
+        dist.broadcast(t, 0, group=mesh.group)
     copies: dict = {}
     for d in mesh.cards:
         copies[d] = t.to(d)
@@ -137,6 +258,83 @@ def owners_by_splitters(keys: torch.Tensor, splitters: torch.Tensor):
                        torch.full_like(owner, splitters.numel() + 1), owner)
 
 
+def _mul32(x: torch.Tensor, m: int) -> torch.Tensor:
+    """(x * m) mod 2**32 for int64 x in [0, 2**32) and m < 2**32, by
+    16-bit halves of x, so that no product passes 2**63: int64 overflow
+    is not defined to wrap alike on every device."""
+    return (((((x >> 16) * m) & 0xFFFF) << 16) + (x & 0xFFFF) * m) & _LO32
+
+
+def owner_hash(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """Owner shard of int64 keys under the hash partition: the JAX
+    package's ``_owner_hash_hilo`` on the keys' 32-bit halves (a
+    multiplicative mixer, near uniform for any key distribution and any
+    n), bit for bit. Sentinel keys get owner n; at n = 1 every other key's
+    owner is 0."""
+    if n == 1:
+        owner = torch.zeros_like(keys)
+    else:
+        h = _mul32(keys >> 32, _MIX1) ^ _mul32(keys & _LO32, _MIX2)
+        h = h ^ (h >> 15)
+        h = _mul32(h, _MIX3)
+        h = h ^ (h >> 13)
+        owner = h % n
+    return torch.where(keys == codec.SENTINEL, torch.full_like(owner, n),
+                       owner)
+
+
+def host_owners(kmers: np.ndarray, n_shards: int,
+                splitters: np.ndarray | None = None) -> np.ndarray:
+    """Owner shard of host uint64 k-mers (the reference's layout): the
+    numpy mirror of ``owner_hash`` and ``owners_by_splitters``, a copy of
+    the JAX package's function. Sentinel keys get owner n_shards."""
+    kmers = np.asarray(kmers, np.uint64)
+    if splitters is not None:
+        owner = np.searchsorted(np.asarray(splitters, np.uint64), kmers,
+                                side="right").astype(np.int32)
+    elif n_shards == 1:
+        owner = np.zeros(kmers.shape, np.int32)
+    else:
+        hi = (kmers >> np.uint64(32)).astype(np.uint32)
+        lo = kmers.astype(np.uint32)
+        with np.errstate(over="ignore"):
+            h = (hi * np.uint32(_MIX1)) ^ (lo * np.uint32(_MIX2))
+            h = h ^ (h >> np.uint32(15))
+            h = h * np.uint32(_MIX3)
+            h = h ^ (h >> np.uint32(13))
+        owner = (h % np.uint32(n_shards)).astype(np.int32)
+    return np.where(kmers == codec.SENTINEL_U64, np.int32(n_shards), owner)
+
+
+def route_capacity(m: int, n_shards: int, slack: float = 0.3) -> int:
+    """The JAX package's per-peer bin width for m keys over n_shards bins
+    of a uniform hash: mean + max(slack*mean, 6*sqrt(mean)), a multiple of
+    128, at most m. A copy kept with the owner functions: the port sizes
+    its segments exactly and never uses it."""
+    if n_shards == 1:
+        return m
+    mean = m / n_shards
+    cap = mean + max(slack * mean, 6.0 * np.sqrt(max(mean, 1.0)))
+    cap = int(-(-cap // 128) * 128)
+    return max(128, min(m, cap))
+
+
+def exact_route_cap(padded_queries: np.ndarray, n_shards: int,
+                    splitters: np.ndarray | None = None) -> int:
+    """The JAX package's exact per-peer bin width of a (n_shards, qcap)
+    query dispatch: the largest (source row, owner) count by
+    ``host_owners``, rounded up to a multiple of 128."""
+    q = np.asarray(padded_queries, np.uint64).reshape(n_shards, -1)
+    mx = 0
+    for row in q:
+        owner = host_owners(row, n_shards, splitters)
+        owner = owner[owner < n_shards]
+        if len(owner):
+            mx = max(mx, int(np.bincount(owner,
+                                         minlength=n_shards).max()))
+    return max(128, -(-mx // 128) * 128)
+
+
 def segment_bounds(keys: torch.Tensor, splitters: torch.Tensor):
     """The n+1 bounds that cut a sorted unique partial (no sentinels) into
     its owners' slices: 0, the first position >= each splitter (side
@@ -148,12 +346,13 @@ def segment_bounds(keys: torch.Tensor, splitters: torch.Tensor):
 
 
 def local_count_step(mesh: ShardMesh, reads: torch.Tensor, k: int) -> list:
-    """A (B, L) uint8 read batch (on the host or a device) -> each shard's
-    raw count-1 keys on its device: the batch cut into n contiguous slices
-    of rows (JAX's local_count_step gives each device B/n rows), each
-    moved to its shard and encoded there. An empty slice gives no keys."""
+    """A (B, L) uint8 read batch (on the host or a device; on a process
+    mesh the rank's rows) -> each shard's raw count-1 keys on its device:
+    the rows cut into contiguous slices, one a shard (JAX's
+    local_count_step gives each device B/n rows), each moved to its shard
+    and encoded there. An empty slice gives no keys."""
     out = []
-    for part, d in zip(reads.tensor_split(mesh.n), mesh.devices):
+    for part, d in zip(reads.tensor_split(mesh.local), mesh.devices):
         if part.shape[0] == 0:
             out.append(torch.empty(0, dtype=torch.int64, device=d))
         else:
@@ -161,29 +360,150 @@ def local_count_step(mesh: ShardMesh, reads: torch.Tensor, k: int) -> list:
     return out
 
 
+def _route_by_hash(keys: torch.Tensor, n: int):
+    """A shard's raw window keys, in the flattened (B, W) order -> the
+    heads of its runs of adjacent equal keys and the runs' lengths (a
+    homopolymer read's windows are one key, sent once), sentinels dropped,
+    cut into one segment an owner shard (a stable sort by owner, so each
+    segment keeps the heads' order)."""
+    m = keys.numel()
+    head = torch.ones(m, dtype=torch.bool, device=keys.device)
+    head[1:] = keys[1:] != keys[:-1]
+    at = torch.nonzero(head).squeeze(1)
+    runs = torch.diff(at, append=at.new_full((1,), m))
+    heads = keys[at]
+    valid = heads != codec.SENTINEL
+    heads, runs = heads[valid], runs[valid]
+    owner = owner_hash(heads, n)
+    order = torch.sort(owner, stable=True).indices
+    sizes = torch.bincount(owner, minlength=n).tolist()
+    return heads[order].split(sizes), runs[order].split(sizes)
+
+
+def hash_segments(mesh: ShardMesh, reads: torch.Tensor, k: int):
+    """The hash route's work before its exchange: the rows cut into
+    contiguous slices, one a shard, each encoded on its shard and cut by
+    ``_route_by_hash``. Returns the keys' and the counts' segments,
+    [shard of this process][owner shard]."""
+    seg_keys, seg_counts = [], []
+    for part, d in zip(reads.tensor_split(mesh.local), mesh.devices):
+        if part.shape[0] == 0:
+            keys = torch.empty(0, dtype=torch.int64, device=d)
+        else:
+            keys = encode_canon(part.to(d, non_blocking=True), k).reshape(-1)
+        sk, sc = _route_by_hash(keys, mesh.n)
+        seg_keys.append(sk)
+        seg_counts.append(sc)
+    return seg_keys, seg_counts
+
+
+def exchange(mesh: ShardMesh, seg_keys: list, seg_counts: list,
+             stats: dict | None = None):
+    """(key, count) segments, [shard of this process][owner shard], sent
+    to their owners: ``all_to_all`` of the keys and of the counts. Returns
+    what each shard of this process received, in source-shard order. With
+    `stats`, its "exchanged_keys" gains the pairs that crossed between
+    shards."""
+    if stats is not None:
+        stats["exchanged_keys"] = stats.get("exchanged_keys", 0) + sum(
+            seg_keys[s][dst].numel() for s in range(mesh.local)
+            for dst in range(mesh.n) if dst != mesh.first + s)
+    return all_to_all(mesh, seg_keys), all_to_all(mesh, seg_counts)
+
+
+def sharded_count_step(mesh: ShardMesh, reads: torch.Tensor, k: int,
+                       stats: dict | None = None):
+    """The hash-routed count of one batch (the JAX package's
+    ``sharded_count_step``): a (B, L) uint8 read batch (on a process mesh
+    the rank's rows), cut into contiguous slices, one a shard, each
+    encoded on its shard, its runs of adjacent equal keys collapsed into
+    heads with run lengths, each head sent to its owner by hash. Returns
+    (keys, counts, n_valid, dropped): for each shard of this process the
+    keys it owns and received this batch and their counts (in source-shard
+    order), the number received, and 0: segments are sized exactly, so no
+    key is dropped. With `stats`, its "exchanged_keys" gains the pairs
+    this process's shards sent to other shards.
+
+    On one shard it is ``count_step``: the raw keys, sentinels included,
+    counts None (the fold counts them), no route."""
+    if mesh.n == 1:
+        keys = count_step(reads.to(mesh.devices[0], non_blocking=True), k)
+        return [keys], None, [int((keys != codec.SENTINEL).sum())], 0
+    keys_in, counts_in = exchange(mesh, *hash_segments(mesh, reads, k),
+                                  stats)
+    keys = [torch.cat(parts) for parts in keys_in]
+    counts = [torch.cat(parts) for parts in counts_in]
+    return keys, counts, [t.numel() for t in keys], 0
+
+
+def mesh_splitters(mesh: ShardMesh, batches: list) -> np.ndarray:
+    """``make_splitters`` of batches buffered on the mesh, each a list of
+    raw key tensors, one a shard of this process: each shard's keys are
+    sampled with the stride its batch's first shard sets (the mesh's
+    longest slice: tensor_split puts the larger slices first), and the
+    samples are gathered in batch and shard order, so every rank gets the
+    splitters a single-process mesh computes from the same batches."""
+    if mesh.world == 1:
+        return make_splitters(batches, mesh.n, SPLIT_SAMPLE)
+    per = max(1, SPLIT_SAMPLE // max(1, len(batches)))
+    pools = []
+    for rows in batches:
+        (longest,) = all_max(mesh, [max(r.numel() for r in rows)])
+        stride = max(1, longest // per)
+        pools += all_gather(mesh, [r[::stride] for r in rows])
+    return splitters_of_sample(pools, mesh.n, SPLIT_SAMPLE)
+
+
 class ShardedKmerTable:
     """A sample's count table over a mesh: shard s holds, as a
-    DeviceKmerTable on devices[s], the sorted unique keys in
-    [splitters[s-1], splitters[s]) and their counts. The shards in order
-    are the whole sorted table.
+    DeviceKmerTable on its device, the sorted unique keys it owns and
+    their counts. Under the range partition shard s owns
+    [splitters[s-1], splitters[s]) and the shards in order are the whole
+    sorted table; under the hash partition it owns the keys ``owner_hash``
+    gives it.
 
-    Batches (one raw key tensor a shard, ``local_count_step``) are
+    Range: batches (one raw key tensor a shard, ``local_count_step``) are
     buffered a shard until a shard's buffer reaches `pending_budget` keys,
     then flushed: partials, exchange, owners' folds. `splitters` is the
     run's partition; None freezes it at the first flush, or after
-    SPLIT_BATCHES batches, from those batches' keys.
+    SPLIT_BATCHES batches, from those batches' keys. Hash: batches arrive
+    routed (``sharded_count_step``'s keys and counts) and each shard folds
+    its own.
 
-    With `budget` (bytes) and `spill`, each shard's DeviceKmerTable guards
-    budget // n; when any shard's fold would pass its share, `spill(self)`
-    writes the whole table as one sorted run and calls `reset` (a run must
-    hold every shard's range). `stats` counts flushes, the (key, count)
-    pairs that crossed between shards, and spills."""
+    With `budget` (bytes) and `spill` (one process only), each shard's
+    DeviceKmerTable guards budget // n; when any shard's fold would pass
+    its share, `spill(self)` writes the whole table as one sorted run and
+    calls `reset` (a run must hold every shard's range, so the partition
+    must be by range). `stats` counts flushes, the (key, count) pairs this
+    process's shards sent to other shards, and spills.
+
+    On a process mesh every rank builds the table and folds every batch
+    (its slice may be empty). The decisions that lead to a collective, a
+    flush before a batch that would pass a shard's cap and a flush at the
+    budget, are taken from sizes reduced over the ranks; the count of
+    buffered batches, which freezes the splitters, is the same on every
+    rank, since every rank folds every batch."""
 
     def __init__(self, mesh: ShardMesh, k: int, splitters=None,
                  pending_budget: int = PENDING_KEYS,
-                 budget: int | None = None, spill=None):
+                 budget: int | None = None, spill=None,
+                 partition: str = "range"):
+        if partition not in PARTITIONS:
+            raise ValueError(f"partition must be one of {PARTITIONS}, not "
+                             f"{partition!r}")
+        if partition == "hash" and splitters is not None:
+            raise ValueError("a hash-partitioned table has no splitters")
+        if spill is not None and mesh.world > 1:
+            raise NotImplementedError(
+                "a spilled run is written from every shard's table, which "
+                "a process of a process mesh holds only in part")
+        if spill is not None and partition == "hash" and mesh.n > 1:
+            raise ValueError("flat spill needs a range partition "
+                             "(hash-partitioned rows do not concatenate "
+                             "sorted)")
         self.mesh = mesh
         self.k = codec.check_k(k)
+        self.partition = partition
         self.splitters = (None if splitters is None
                           else np.asarray(splitters, np.int64))
         if self.splitters is not None and len(self.splitters) != mesh.n - 1:
@@ -191,7 +511,9 @@ class ShardedKmerTable:
                              f"{mesh.n} shards")
         self.spill = spill
         share = None if budget is None else budget // mesh.n
-        self.shards = [DeviceKmerTable(k, d, budget=share,
+        # a hash shard buffers its routed batches itself
+        shard_pending = pending_budget if partition == "hash" else PENDING_KEYS
+        self.shards = [DeviceKmerTable(k, d, shard_pending, budget=share,
                                        spill=None if spill is None
                                        else self._spill_all)
                        for d in mesh.devices]
@@ -199,7 +521,7 @@ class ShardedKmerTable:
         self.pending_budget = (pending_budget if self.pending_cap is None
                                else min(pending_budget, self.pending_cap))
         self._pending: list = [[] for _ in mesh.devices]
-        self._pending_els = [0] * mesh.n
+        self._pending_els = [0] * mesh.local
         self.stats = {"flushes": 0, "exchanged_keys": 0, "spills": 0}
 
     @property
@@ -208,69 +530,105 @@ class ShardedKmerTable:
 
     @property
     def n_keys(self) -> int:
-        return sum(s.n_keys for s in self.shards)
+        return sum(self.shard_keys())
 
     def shard_keys(self) -> list:
-        """Each shard's unique keys (the splitters' balance)."""
-        return [s.n_keys for s in self.shards]
+        """Each shard's unique keys (the partition's balance), every shard
+        of the mesh."""
+        sizes = [s.n_keys for s in self.shards]
+        if self.mesh.world == 1:
+            return sizes
+        dev = self.mesh.devices[0]
+        return [int(t) for t in all_gather(
+            self.mesh, [torch.tensor([v], device=dev) for v in sizes])]
 
-    def fold_batch(self, parts: list):
-        """Queue one batch: raw count-1 keys, a tensor a shard on its
-        device. Flushes when a shard's buffer reaches the budget (first,
+    def fold_batch(self, parts: list, counts: list | None = None):
+        """Queue one batch, a tensor a shard of this process on its device:
+        raw count-1 keys (the range partition's ``local_count_step``), or
+        the keys and counts that ``sharded_count_step`` routed to each
+        shard (the hash partition; raw keys, counts None, on one shard).
+        Range: flushes when a shard's buffer reaches the budget (first,
         under a device budget, when the batch would pass a shard's cap)."""
-        if len(parts) != self.mesh.n:
-            raise ValueError(f"{len(parts)} parts for {self.mesh.n} shards")
+        if len(parts) != self.mesh.local:
+            raise ValueError(f"{len(parts)} parts for {self.mesh.local} "
+                             "shards")
+        if self.partition == "hash":
+            for shard, keys, c in zip(self.shards, parts,
+                                      counts or [None] * len(parts)):
+                shard.fold_batch(keys, c)
+            return
+        if counts is not None:
+            raise ValueError("a range-partitioned table folds raw keys")
         sizes = [p.numel() for p in parts]
+        largest, pending = all_max(self.mesh, [
+            max(sizes), max(e + s for e, s in zip(self._pending_els, sizes))])
         if self.pending_cap is not None:
-            if max(sizes) > self.pending_cap:
+            if largest > self.pending_cap:
                 raise RuntimeError(
-                    f"a batch slice of {max(sizes)} keys passes a shard's "
+                    f"a batch slice of {largest} keys passes a shard's "
                     f"device budget alone (at most {self.pending_cap} "
                     "pending keys); lower batch_size or raise hbm_budget_gb")
-            if any(e + s > self.pending_cap
-                   for e, s in zip(self._pending_els, sizes)):
+            if pending > self.pending_cap:
                 self.flush()
+                pending = largest
         for i, p in enumerate(parts):
             self._pending[i].append(p.reshape(-1))
             self._pending_els[i] += sizes[i]
         if (self.splitters is None
                 and len(self._pending[0]) >= SPLIT_BATCHES):
             self._freeze()
-        if max(self._pending_els) >= self.pending_budget:
+        if pending >= self.pending_budget:
             self.flush()
 
     def _freeze(self):
         """Splitters from the buffered batches, the first SPLIT_BATCHES
         (none has been flushed yet): spaced batches, since one batch of a
         coordinate-sorted BAM is one locality of the genome."""
-        batches = [[self._pending[s][i] for s in range(self.mesh.n)]
+        batches = [[self._pending[s][i] for s in range(self.mesh.local)]
                    for i in range(min(SPLIT_BATCHES, len(self._pending[0])))]
-        self.splitters = make_splitters(batches, self.mesh.n)
+        self.splitters = mesh_splitters(self.mesh, batches)
 
     def _spill_all(self, _shard=None):
         self.spill(self)
         self.stats["spills"] += 1
 
     def flush(self):
-        """Fold every buffered batch: each shard's buffer sorted and
-        compacted into a partial, the partials cut at the splitters and
-        exchanged, each owner folding what it receives (the counted route
-        of compact_runs). Each shard's segment bounds are read on the host
-        to size the exchange exactly."""
+        """Fold every buffered batch. Hash: each shard folds its own.
+        Range: each shard's buffer sorted and compacted into a partial,
+        the partials cut at the splitters and exchanged, each owner folding
+        what it receives (the counted route of compact_runs). Each shard's
+        segment bounds are read on the host to size the exchange
+        exactly."""
+        if self.partition == "hash":
+            for shard in self.shards:
+                shard.flush()
+            return
+        # every rank buffers every batch, so all agree whether one is here
         if not any(self._pending):
             return
+        self.stats["flushes"] += 1
+        self.fold_received(*exchange(self.mesh, *self.partials(),
+                                     self.stats))
+
+    def partials(self):
+        """The range flush's local work: each shard's buffered raw keys
+        sorted and compacted into a sorted unique partial, cut at the
+        splitters into one (key, count) segment an owner shard (the
+        segment bounds read on the host, which sizes the exchange). Empties
+        the buffers; returns the keys' and counts' segments, [shard of this
+        process][owner shard]."""
         if self.splitters is None:
             self._freeze()
-        n = self.mesh.n
-        self.stats["flushes"] += 1
+        mesh = self.mesh
         # Under a budget a partial's sort needs no guard of its own: it
         # sorts at most pending_cap raw keys beside a table that the
         # owners' merge guard keeps under 2 x pending_cap keys, 84 bytes a
         # pending_cap key in all, within the shard's 128.
-        pending, self._pending = self._pending, [[] for _ in range(n)]
-        self._pending_els = [0] * n
+        pending = self._pending
+        self._pending = [[] for _ in range(mesh.local)]
+        self._pending_els = [0] * mesh.local
         partials, bounds = [], []
-        for parts, d in zip(pending, self.mesh.devices):
+        for parts, d in zip(pending, mesh.devices):
             keys = torch.cat(parts)
             parts.clear()
             if keys.numel():
@@ -280,20 +638,14 @@ class ShardedKmerTable:
             del keys
             partials.append((pk, pc))
             bounds.append(segment_bounds(pk, splitters_on(self.splitters, d)))
-        del pending
-        segments = []
-        for (pk, pc), b in zip(partials, all_gather(bounds)):
-            lens = np.diff(b).tolist()
-            segments.append(list(zip(pk.split(lens), pc.split(lens))))
-        del partials
-        self.stats["exchanged_keys"] += sum(
-            segments[s][d][0].numel() for s in range(n) for d in range(n)
-            if s != d)
-        keys_in = all_to_all(self.mesh, [[kc[0] for kc in row]
-                                         for row in segments])
-        counts_in = all_to_all(self.mesh, [[kc[1] for kc in row]
-                                           for row in segments])
-        del segments
+        # read once every shard's work is queued, so that cards overlap
+        lens = [np.diff(b.tolist()).tolist() for b in bounds]
+        return ([pk.split(n) for (pk, _), n in zip(partials, lens)],
+                [pc.split(n) for (_, pc), n in zip(partials, lens)])
+
+    def fold_received(self, keys_in: list, counts_in: list):
+        """Each owner shard folds the (key, count) segments it received
+        (the counted route of compact_runs)."""
         for dst, shard in enumerate(self.shards):
             for k_, c_ in zip(keys_in[dst], counts_in[dst]):
                 if k_.numel():
@@ -308,17 +660,34 @@ class ShardedKmerTable:
             shard.apply_lower_count(lower)
 
     def to_host(self) -> count.KmerTable:
-        """The shards concatenated into a host KmerTable (uint64 keys)."""
+        """Every shard's keys and counts gathered into a host KmerTable
+        (uint64 keys): the shards concatenated, sorted under a hash
+        partition. On a process mesh every rank gets the whole table."""
         self.flush()
-        keys = np.concatenate([s.keys.cpu().numpy() for s in self.shards])
-        counts = np.concatenate([s.counts.cpu().numpy() for s in self.shards])
-        return count.KmerTable(self.k, codec.keys_i64_to_u64(keys), counts)
+        keys = torch.cat([t.cpu() for t in all_gather(
+            self.mesh, [s.keys for s in self.shards])])
+        counts = torch.cat([t.cpu() for t in all_gather(
+            self.mesh, [s.counts for s in self.shards])])
+        if self.partition == "hash":
+            keys, order = torch.sort(keys)
+            counts = counts[order]
+        return count.KmerTable(self.k, codec.keys_i64_to_u64(keys.numpy()),
+                               counts.numpy())
 
     def to_flat(self, path: str, chunk: int = 1 << 25) -> count.KmerTable:
         """The flat layout of the concatenated shards, through chunked
         device-to-host slices and a temporary file; returns the memmapped
-        KmerTable."""
+        KmerTable. Needs a range partition (or one shard) on one
+        process."""
         self.flush()
+        if self.mesh.n > 1 and self.partition == "hash":
+            raise ValueError("flat spill needs a range partition "
+                             "(hash-partitioned rows do not concatenate "
+                             "sorted)")
+        if self.mesh.world > 1:
+            raise NotImplementedError(
+                "a process of a process mesh holds only its own shards; "
+                "gather the table with to_host")
         with count.atomic_write(path) as f:
             count.write_flat_header(f, self.k, self.n_keys)
             for plane, dtype in (("keys", "<u8"), ("counts", "<i8")):
@@ -338,22 +707,26 @@ class ShardedKmerTable:
     def release(self):
         """Drop the device tensors."""
         self._pending = [[] for _ in self.mesh.devices]
-        self._pending_els = [0] * self.mesh.n
+        self._pending_els = [0] * self.mesh.local
         for shard in self.shards:
             shard.release()
 
 
-def _partition_of(tables: list) -> np.ndarray:
-    """The splitters the tables share; ValueError if their meshes or
-    partitions differ (their shards would not hold the same key ranges)."""
+def _partition_of(tables: list):
+    """The partition the tables share, ("range", splitters) or ("hash",
+    None); ValueError if their meshes, partitions or splitters differ
+    (their shards would not hold the same keys)."""
     first = tables[0]
     for t in tables[1:]:
-        if (t.mesh != first.mesh or t.splitters is None
-                or first.splitters is None
-                or not np.array_equal(t.splitters, first.splitters)):
+        if (t.mesh != first.mesh or t.partition != first.partition
+                or (first.partition == "range"
+                    and (t.splitters is None or first.splitters is None
+                         or not np.array_equal(t.splitters,
+                                               first.splitters)))):
             raise ValueError("sharded tables of different partitions: every "
-                             "table of a run must share its splitters")
-    return first.splitters
+                             "table of a run must share its mesh, its "
+                             "partition and its splitters")
+    return first.partition, first.splitters
 
 
 # -- the stage steps ----------------------------------------------------------
@@ -365,21 +738,28 @@ def sharded_subtract_step(subject: ShardedKmerTable, controls: list,
     (SUBJECT keys absent from every control, subject count in
     [max(merge_min, min_cov), max_depth]); the tables share the partition,
     so no key crosses shards. Returns the sorted mutant keys and their
-    subject counts on the first shard's device."""
+    subject counts on the first shard's device: the shards' results in
+    order, sorted under a hash partition, and on a process mesh gathered
+    from every rank, since the filter needs the HashList on each."""
     tables = [subject, *controls]
     for t in tables:
         t.flush()
-    if controls:
-        _partition_of(tables)
-    dev0 = subject.mesh.devices[0]
+    partition, _ = _partition_of(tables)
+    mesh = subject.mesh
+    dev0 = mesh.devices[0]
     keys, counts = [], []
-    for s in range(subject.mesh.n):
+    for s in range(mesh.local):
         mk, mc = subtract_step(subject.shards[s],
                                [c.shards[s] for c in controls], merge_min,
                                min_cov, max_depth)
         keys.append(mk.to(dev0))
         counts.append(mc.to(dev0))
-    return torch.cat(keys), torch.cat(counts)
+    keys = torch.cat(all_gather(mesh, keys))
+    counts = torch.cat(all_gather(mesh, counts))
+    if partition == "hash":
+        keys, order = torch.sort(keys)
+        counts = counts[order]
+    return keys, counts
 
 
 def replicate_hashlist(mesh: ShardMesh, table: torch.Tensor, k: int) -> list:
@@ -396,12 +776,13 @@ def sharded_filter_step(mesh: ShardMesh, mates: list, hashlist: list, k: int,
                         min_q: int, threshold: int) -> torch.Tensor:
     """The filter's keep mask of a batch of B reads or pairs: `mates` is
     [(reads, quals, lens)] for one mate or two (host or device tensors of B
-    rows), `hashlist` is ``replicate_hashlist``'s. The rows are cut into n
-    contiguous slices (tensor_split; the JAX driver pads B to a multiple of
-    n instead), each filtered on its shard with ``window_hits``; a row is
+    rows; on a process mesh the rank's rows), `hashlist` is
+    ``replicate_hashlist``'s. The rows are cut into contiguous slices, one
+    a shard (tensor_split; the JAX driver pads B to a multiple of n
+    instead), each filtered on its shard with ``window_hits``; a row is
     kept when a mate has at least `threshold` mutant windows. Returns the
     (B,) bool mask on the host."""
-    slices = [[t.tensor_split(mesh.n) for t in mate] for mate in mates]
+    slices = [[t.tensor_split(mesh.local) for t in mate] for mate in mates]
     keep = []
     for s, (d, (table, index)) in enumerate(zip(mesh.devices, hashlist)):
         rows = slices[0][0][s].shape[0]
@@ -418,34 +799,50 @@ def sharded_filter_step(mesh: ShardMesh, mates: list, hashlist: list, k: int,
 
 
 def sharded_query_multi(tables: list, kmers_u64: np.ndarray) -> np.ndarray:
-    """Counts of canonical uint64 `kmers_u64` in every table of `tables`
-    (ShardedKmerTables of one partition), 0 when absent, as a
-    (len(tables), len(kmers)) int64 host array: the queries routed to
-    their owner shard, one ``torch.searchsorted`` a table there, the
-    answers routed back and put in query order."""
+    """Counts of canonical uint64 `kmers_u64` (on a process mesh, the
+    rank's own queries) in every table of `tables` (ShardedKmerTables of
+    one partition), 0 when absent, as a (len(tables), len(kmers)) int64
+    host array: the queries routed from the first shard of this process to
+    their owner shards (by splitters or by hash), one
+    ``torch.searchsorted`` a table there, the answers routed back and put
+    in query order. On a process mesh every rank must call it, with or
+    without queries."""
     out = np.zeros((len(tables), len(kmers_u64)), np.int64)
-    if not len(kmers_u64) or not tables:
+    if not tables:
+        return out
+    mesh = tables[0].mesh
+    if mesh.world == 1 and not len(kmers_u64):
         return out
     for t in tables:
         t.flush()
-    splitters = _partition_of(tables)
-    mesh = tables[0].mesh
-    q = torch.from_numpy(codec.keys_u64_to_i64(kmers_u64))
-    owner = owners_by_splitters(q, splitters_on(splitters, "cpu"))
+    partition, splitters = _partition_of(tables)
+    q = torch.from_numpy(codec.keys_u64_to_i64(
+        np.asarray(kmers_u64, np.uint64)))
+    owner = (owners_by_splitters(q, splitters_on(splitters, "cpu"))
+             if partition == "range" else owner_hash(q, mesh.n))
     order = torch.argsort(owner, stable=True)
     sizes = torch.bincount(owner, minlength=mesh.n + 1)[:mesh.n].tolist()
     routed = q[order].split(sizes + [len(q) - sum(sizes)])[:mesh.n]
-    answers = [[] for _ in tables]
-    for s, (seg, d) in enumerate(zip(routed, mesh.devices)):
-        seg = seg.to(d, non_blocking=True)
-        for t, table in enumerate(tables):
-            shard = table.shards[s]
-            answers[t].append(_query.lookup(shard.keys, shard.counts,
-                                            seg).cpu())
-    idx = order[: sum(sizes)].numpy()
-    for t in range(len(tables)):
-        out[t, idx] = torch.cat(answers[t]).numpy()
+    dev0 = mesh.devices[0]
+    empty = torch.empty(0, dtype=torch.int64, device=dev0)
+    sent = [[r.to(dev0, non_blocking=True) for r in routed]] + [
+        [empty] * mesh.n for _ in range(mesh.local - 1)]
+    back = []
+    for s, got in enumerate(all_to_all(mesh, sent)):
+        qs = torch.cat(got)
+        ans = torch.stack([_query.lookup(t.shards[s].keys, t.shards[s].counts,
+                                         qs) for t in tables], 1)
+        back.append(list(ans.split([g.numel() for g in got])))
+    answers = torch.cat(all_to_all(mesh, back)[0]).cpu().numpy()
+    out[:, order[:sum(sizes)].numpy()] = answers.T
     return out
+
+
+def sharded_query_step(table: ShardedKmerTable,
+                       kmers_u64: np.ndarray) -> np.ndarray:
+    """Counts of `kmers_u64` in one sharded table (the JAX package's
+    single-table ``sharded_query_step``): ``sharded_query_multi`` of it."""
+    return sharded_query_multi([table], kmers_u64)[0]
 
 
 def query_counts(tables: list, kmers_u64: np.ndarray) -> np.ndarray:
@@ -463,4 +860,3 @@ def query_counts(tables: list, kmers_u64: np.ndarray) -> np.ndarray:
         out[other] = _query.query_counts([tables[i] for i in other],
                                          kmers_u64)
     return out
-

@@ -162,6 +162,9 @@ class RufusPipeline:
                                      resolve_device(cfg.device))
         elif cfg.sharded == "off" and mesh.n > 1:
             raise ValueError(f"sharded='off' with a mesh of {mesh.n} shards")
+        elif mesh.world > 1:
+            raise ValueError("the pipeline runs in one process; a process "
+                             "mesh drives the library steps of parallel/")
         self.mesh = mesh
         self.device = mesh.devices[0]
         os.makedirs(cfg.workdir, exist_ok=True)
@@ -1249,7 +1252,8 @@ class RufusPipeline:
         pulls, interpret and polish. A sample whose table is resident on
         the device (counted by this pipeline) is pulled from it rather
         than from the table handed in, as in the JAX package. Returns the
-        FINAL.vcf path."""
+        FINAL.vcf path, beside which it writes FINAL.vcf.gz and its .tbi
+        anew (the JAX package leaves run()'s stale ones)."""
         self.check_supported("align")
         cfg = self.cfg
         contigs_path = cfg.wpath(cfg.name_stub + ".overlap.hashcount.fastq")
@@ -1259,7 +1263,10 @@ class RufusPipeline:
         tables = {"subject": self._load_table(cfg.subject_stub),
                   "controls": control_tables}
         inputs = self.stage_contig_align(contigs_path, tables)
-        return self.stage_polish(self.stage_interpret(inputs))
+        final = self.stage_polish(self.stage_interpret(inputs))
+        # run()'s bgzip + tabix: the new genotypes replace the .gz's too
+        bgzf.bgzip_tabix_vcf(final, keep_plain=True)
+        return final
 
     # -- the full run -------------------------------------------------------
 

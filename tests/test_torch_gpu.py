@@ -810,3 +810,127 @@ def test_sharded_full_run_on_card_equals_cpu(tmp_path, monkeypatch, layout):
                 np.testing.assert_array_equal(za[key], zb[key])
         else:
             assert (cuda / n).read_bytes() == (cpu / n).read_bytes(), n
+
+
+# -- the hash route and the process mesh -------------------------------------
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+def test_owner_hash_on_card_equals_host_owners(n):
+    """owner_hash's 16-bit-half multiplies on the card give host_owners'
+    uint32 hash bit for bit, on a million keys with the halves' edges and
+    sentinels."""
+    from rufus_tpu_torch.parallel import host_owners, owner_hash
+
+    dev = _card()
+    rng = np.random.default_rng(n)
+    keys = rng.integers(0, 1 << 62, 1 << 20, dtype=np.uint64)
+    keys[:4096] = ((np.uint64((1 << 30) - 1) << np.uint64(32))
+                   | np.uint64((1 << 32) - 1)) - np.arange(4096,
+                                                           dtype=np.uint64)
+    keys[::97] = codec.SENTINEL_U64
+    got = owner_hash(torch.from_numpy(codec.keys_u64_to_i64(keys)).to(dev),
+                     n).cpu().numpy()
+    np.testing.assert_array_equal(got, host_owners(keys, n))
+
+
+def _chain_inputs(seed=10, batches=6, B=96, L=100):
+    """run_chain's arguments: reads of a 20 kbp genome (the child's with 8
+    SNVs), substitutions, N bases, low qualities, lengths 60-100, as
+    tests/test_torch_sharded.py makes them; queries present and absent."""
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    genome = rng.choice(bases, 20_000)
+    child = genome.copy()
+    sites = rng.choice(len(genome), 8, replace=False)
+    child[sites] = bases[(np.searchsorted(bases, child[sites]) + 1) % 4]
+
+    def reads(g):
+        n = batches * B
+        r = g[rng.integers(0, len(g) - L, n)[:, None] + np.arange(L)]
+        r[rng.random(r.shape) < 0.005] = ord("N")
+        q = np.full(r.shape, ord("I"), np.uint8)
+        q[rng.random(r.shape) < 0.02] = ord("#")
+        lens = rng.integers(60, L + 1, n).astype(np.int32)
+        r[np.arange(L)[None, :] >= lens[:, None]] = ord("N")
+        return r.astype(np.uint8), q, lens
+
+    samples = {"child": reads(child), "mother": reads(genome)[0],
+               "father": reads(genome)[0]}
+    win = cuda_count.encode_canon_torch(torch.from_numpy(
+        samples["child"][0][:B]), 25).reshape(-1)
+    present = codec.keys_i64_to_u64(
+        torch.unique(win[win != codec.SENTINEL]).numpy()[::7])
+    queries = rng.permutation(np.concatenate([
+        present, rng.integers(0, 1 << 50, 100, dtype=np.uint64)]))[:301]
+    return (samples, 25, B, queries, 2, 2, 2, 1000, 15, 1)
+
+
+def _assert_rank_equals(rank_out, single, mesh, n_rows, B):
+    """A rank's run_chain arrays against the single-process run's: the
+    whole tables and HashLists, and its rows of the keep masks and
+    pulls."""
+    from rufus_tpu_torch.parallel import local_rows
+
+    for key, want in single.items():
+        got = rank_out[key]
+        if key.endswith("_keep"):
+            want = np.concatenate([local_rows(mesh, want[i:i + B])
+                                   for i in range(0, n_rows, B)])
+        elif key.endswith("_pulls"):
+            want = want[:, local_rows(mesh, np.arange(want.shape[1]))]
+        np.testing.assert_array_equal(got, want, err_msg=key)
+
+
+@pytest.mark.parametrize("layout", ["one_card", "every_card"])
+def test_hash_route_on_card_equals_cpu(layout):
+    """Both partitions' chain (count, floor, subtract, filter, pulls) on
+    four shards of cuda:0, or a shard a card over every card (two or
+    more), equals the same chain on CPU shards; the hash route's kernels
+    launch."""
+    from rufus_tpu_torch.parallel import make_mesh
+    from rufus_tpu_torch.tools.multiproc_smoke import run_chain
+
+    _card()
+    if layout == "one_card":
+        mesh = make_mesh(4, "cuda:0")
+    elif torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices or more")
+    else:
+        mesh = make_mesh()
+    args = _chain_inputs()
+    kernels = (cuda_count.encode_canon, cuda_fold.compact_runs,
+               cuda_filter.window_hits)
+    before = [k.launches for k in kernels]
+    got = run_chain(mesh, *args)
+    assert all(k.launches > b for k, b in zip(kernels, before))
+    want = run_chain(make_mesh(mesh.n, "cpu"), *args)
+    assert got.keys() == want.keys()
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    assert len(got["hash_hl_keys"]) > 0 and got["hash_keep"].any()
+
+
+@pytest.mark.parametrize("layout", ["one_card", "every_card"])
+def test_process_mesh_on_card_equals_cpu(layout):
+    """NCCL ranks spawned on the card(s), the group through a file store:
+    one rank holding four shards of cuda:0, or a rank a card (two or more)
+    holding two shards each. Each rank's tables, splitters, HashList, keep
+    masks of its rows and pulls of its queries equal the single-process
+    CPU mesh's."""
+    from rufus_tpu_torch.parallel import ShardMesh, make_mesh
+    from rufus_tpu_torch.tools.multiproc_smoke import run_chain, spawn_ranks
+
+    _card()
+    world = 1 if layout == "one_card" else torch.cuda.device_count()
+    if layout == "every_card" and world < 2:
+        pytest.skip("needs two CUDA devices or more")
+    local = 4 if world == 1 else 2
+    args = _chain_inputs()
+    runs = spawn_ranks(run_chain, world, "cuda", local, args, timeout=600)
+    single = run_chain(make_mesh(world * local, "cpu"), *args)
+    rows = len(args[0]["child"][0])
+    for rank, out in enumerate(runs):
+        mesh = ShardMesh((torch.device("cpu"),) * local, rank=rank,
+                         world=world)
+        _assert_rank_equals(out, single, mesh, rows, args[2])

@@ -10,6 +10,7 @@ its folds allocate, so the two spill at other points; the merged table
 does not depend on where the runs were cut.
 """
 
+import gzip
 import os
 import shutil
 import sys
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 import rufus_tpu.interpret.driver as jax_interpret
+from rufus_tpu.io import bgzf as jbgzf
 from rufus_tpu.ops import count as jcount
 from rufus_tpu.parallel.sharded import make_splitters as jax_splitters
 from rufus_tpu.pipeline import RufusConfig as JaxConfig
@@ -481,8 +483,9 @@ def test_spill_tables_off_spills_nothing(trio, tmp_path):
 def test_regenotype_with_flat_tables_matches_jax(trio, spilled, tmp_path):
     """regenotype on a fresh pipeline over the spilled run: the subject
     from its .table.flat (_load_table), the parents opened with
-    load_flat; every file equals the JAX package's, and FINAL.vcf the
-    run's."""
+    load_flat; every file equals the JAX package's (its FINAL.vcf.gz and
+    .tbi written after its regenotype, as the port's regenotype writes
+    them), the .gz inflates to FINAL.vcf, and FINAL.vcf is the run's."""
     _, start = spilled["port"]
     final = _bytes(start / os.path.basename(spilled["port"][0]))
     kw = _trio_kw(*trio)
@@ -499,8 +502,12 @@ def test_regenotype_with_flat_tables_matches_jax(trio, spilled, tmp_path):
 
     def jax(wd):
         pipe = JaxPipeline(JaxConfig(workdir=wd, sharded="off", **kw))
-        return pipe.regenotype(parents(jcount.KmerTable.load_flat, wd,
-                                       pipe.cfg))
+        final = pipe.regenotype(parents(jcount.KmerTable.load_flat, wd,
+                                        pipe.cfg))
+        # the port's regenotype writes FINAL.vcf.gz and .tbi anew, as run()
+        # does; the JAX package leaves run()'s stale ones
+        jbgzf.bgzip_tabix_vcf(final, keep_plain=True)
+        return final
 
     out = _in_turn(tmp_path, [("port", port, start), ("jax", jax, start)])
     (got, pwd), (want, jwd) = out["port"], out["jax"]
@@ -509,6 +516,8 @@ def test_regenotype_with_flat_tables_matches_jax(trio, spilled, tmp_path):
     assert names == _files(jwd)
     for n in names:
         assert _bytes(pwd / n) == _bytes(jwd / n), n
+    with gzip.open(str(pwd / os.path.basename(got)) + ".gz", "rb") as f:
+        assert f.read() == _bytes(pwd / os.path.basename(got))
     # the run's own workdir lies elsewhere: the #CHROM line's sample
     # column (the workdir's path) differs
     same = lambda b: [line for line in b.split(b"\n")  # noqa: E731

@@ -17,6 +17,7 @@ runs on the CPU, the JAX package with sharded="off", both with
 exome=True and -m 5.
 """
 
+import gzip
 import os
 import runpy
 import shutil
@@ -27,6 +28,7 @@ import numpy as np
 import pytest
 
 import rufus_tpu.interpret.driver as jax_interpret
+from rufus_tpu.io import bgzf as jbgzf
 from rufus_tpu.ops import count as jcount
 from rufus_tpu.pipeline import RufusConfig as JaxConfig
 from rufus_tpu.pipeline import RufusPipeline as JaxPipeline
@@ -243,7 +245,11 @@ def test_longread_matches_jax(trio, aligned, tmp_path, case):
 
 def test_regenotype_on_a_fresh_pipeline(trio, aligned, tmp_path):
     """regenotype with the parents' saved tables, on a fresh pipeline (as
-    the CLI runs it: no table is resident on the device)."""
+    the CLI runs it: no table is resident on the device). The port also
+    writes FINAL.vcf.gz and its .tbi, as run() does, where the JAX package
+    leaves none (or run()'s stale ones): the JAX side is completed with
+    its own bgzip_tabix_vcf, so those files are compared too, and the .gz
+    must inflate to FINAL.vcf."""
     d, data, bams = trio
     kw = _kwargs(d, data, bams, mosaic=True)
 
@@ -254,11 +260,17 @@ def test_regenotype_on_a_fresh_pipeline(trio, aligned, tmp_path):
 
     def jax(wd):
         pipe = JaxPipeline(JaxConfig(workdir=wd, sharded="off", **kw))
-        return pipe.regenotype(_parent_tables(jcount.KmerTable.load, wd,
-                                              pipe.cfg))
+        final = pipe.regenotype(_parent_tables(jcount.KmerTable.load, wd,
+                                               pipe.cfg))
+        jbgzf.bgzip_tabix_vcf(final, keep_plain=True)
+        return final
 
     got, port_wd = run_both(tmp_path, aligned["paired"], port, jax)
-    assert got.endswith(NS + FINAL) and _rows(port_wd / (NS + FINAL))
+    final = port_wd / (NS + FINAL)
+    assert got.endswith(NS + FINAL) and _rows(final)
+    with gzip.open(str(final) + ".gz", "rb") as f:
+        assert f.read() == final.read_bytes()
+    _check_final(got, port_wd, want_rows=True)
 
 
 def test_cli_mosaic_matches_jax(trio, aligned, tmp_path, monkeypatch, capsys):
