@@ -184,11 +184,35 @@ Phases, each printing one JSON line; any failure exits non-zero:
              PyTorch call gives block-sorted runs in bucket order, so it
              has no library yardstick.
 
-8. scaling - the scaling tool (python -m rufus_tpu_torch.tools.scaling)
+8. pack    - packed transport (ops/pack.py): with the unpack launch count
+             set to 0, the subject's mate-1 FASTQ in batches of 65536 x 160
+             is packed on the host (2-bit codes, N mask, a min_q 15 plane),
+             copied on a side stream a batch ahead and unpacked on the card
+             (pack.packed_feed), then counted into a DeviceKmerTable and
+             filtered against the run's HashList; the table and hits must
+             equal the same batches fed as ASCII, and unpack must launch
+             once a batch. Then the unpack kernel against its plain
+             versions (both planes, exactly) on the first batch and at
+             tools/bench.py's shape (65536 x 152), its ms, device_us and
+             bytes over 3.35 TB/s (no single PyTorch call unpacks bits
+             through a table: no library yardstick), and for the feed
+             decision each feed's costs a batch: the host's pack_reads and
+             pack_qual_ok, and the pinned copies of the packed planes
+             against the ASCII reads (count) and reads and quals (filter);
+9. tools   - python -m rufus_tpu_torch.tools.bench, .sortbench and
+             .alignbench --mbp 16, each its own process printing its own
+             JSON line (relayed); a tools line sums them up and checks that
+             the bench's path launched every kernel, unpack included, and
+             that alignbench mapped >= 90% of its reads;
+10. scaling - the scaling tool (python -m rufus_tpu_torch.tools.scaling)
              on a shard a visible card, or with one card on 1, 2 and 4
              shards of cuda:0: it prints its own JSON line (count, filter
              and pull rates and the count's phases of both routes), then
              a scaling line sums it up.
+
+The slice's pipeline runs under a MemSampler (utils/trace.py, a sample a
+second): a mem_stages line gives each stage's highest host RSS sample
+with the card's allocated and reserved MB.
 
 Then the kernels line, the nvidia-smi name/power-limit line, and last the
 {"ok": true, "device": ...} line.
@@ -212,6 +236,8 @@ K, BATCH, READ_PAD, PENDING = 25, 65536, 160, 96 << 20
 RADIX_N = 26_000_000  # the radix tool's default n (cut to 25,993,216)
 LARGE_T, LARGE_HITS = 65536, 4096  # window_hits' second HashList
 REF_CONTIG = "1"  # polish keeps rows on contigs named (chr)?[1-9XY] only
+MEM_INTERVAL_S = 1.0  # the slice's MemSampler
+ALIGNBENCH_MBP = 16  # the alignment tool's genome in the tools phase
 
 
 def emit(obj):
@@ -412,9 +438,29 @@ def phase_vcf(data, cfg, stages, final):
         raise AssertionError("interpret wrote no row")
 
 
+def phase_mem_stages(sampler, stages):
+    """Each stage's sample with the highest host RSS (MemSampler, every
+    MEM_INTERVAL_S seconds), with the card's allocated and reserved MB
+    at that moment; every stage of two intervals or more must have a
+    sample."""
+    peaks = sampler.per_stage_peaks()
+    keys = ("rss_mb", "cuda_allocated_mb", "cuda_reserved_mb",
+            "heap_in_use_mb", "heap_retained_mb")
+    emit({"phase": "mem_stages", "interval_s": sampler.interval,
+          "samples": len(sampler.samples),
+          "stages": {st: {k: p.get(k) for k in keys}
+                     for st, p in peaks.items()}})
+    missing = [s["stage"] for s in stages
+               if s["wall_s"] >= 2 * sampler.interval
+               and s["stage"] not in peaks]
+    if missing:
+        raise AssertionError(f"MemSampler took no sample in {missing}")
+
+
 def phase_slice(data, workdir):
     from rufus_tpu_torch import synthetic
     from rufus_tpu_torch.pipeline import RufusPipeline
+    from rufus_tpu_torch.utils.trace import MemSampler
 
     from rufus_tpu_torch.ops import cuda_sw
 
@@ -423,10 +469,15 @@ def phase_slice(data, workdir):
     kernels = dict(_kernels(), sw_batch=cuda_sw.sw_ragged)
     for fn in (*kernels.values(), cuda_sw.sw_batch):
         fn.launches = 0
+    sampler = MemSampler(pipe.trace, interval=MEM_INTERVAL_S).start()
     t0 = time.perf_counter()
-    final = pipe.run()
-    torch.cuda.synchronize()
+    try:
+        final = pipe.run()
+        torch.cuda.synchronize()
+    finally:
+        sampler.stop()
     wall = time.perf_counter() - t0
+    phase_mem_stages(sampler, pipe.trace.stages)
     launches = {name: fn.launches for name, fn in kernels.items()}
     stages = {s["stage"]: s for s in pipe.trace.stages}
     emit({"phase": "model", "seconds": stages["model"]["wall_s"]})
@@ -1716,6 +1767,198 @@ def phase_radix(data, work, seed):
     return row
 
 
+def best_host_ms(fn, reps: int = 3) -> float:
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def unpack_row(pk, nm, ok, L):
+    """The unpack kernel on one batch's planes: both planes against the
+    plain versions, times, bound and device time."""
+    from rufus_tpu_torch.ops import cuda_pack
+
+    B = pk.shape[0]
+    call = lambda: cuda_pack.unpack(pk, nm, ok, L)  # noqa: E731
+    r, q = call()
+    err = max(max_abs_err(r, cuda_pack.unpack_reads_torch(pk, nm, L)),
+              max_abs_err(q, cuda_pack.unpack_qual_torch(ok, L)))
+    nbytes = pk.numel() + nm.numel() + ok.numel() + 2 * B * L
+    return {"max_abs_err": err, "ms": time_ms(call, 50),
+            "plain_ms": time_ms(lambda: (
+                cuda_pack.unpack_reads_torch(pk, nm, L),
+                cuda_pack.unpack_qual_torch(ok, L)), 5),
+            "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+            "library_ms": None, "shape": [B, L], "bytes": nbytes,
+            "device_us": device_us(call)}
+
+
+def feed_costs(seq, qual):
+    """What each feed costs a batch: the host's pack_* of the numpy batch
+    and the pinned copies of the packed planes against the ASCII batch
+    (reads alone for the count, reads and quals for the filter)."""
+    from rufus_tpu_torch.ops import pack
+
+    dev = torch.device("cuda")
+    _, (pk, nm, ok) = pack.pack_batch(seq, qual, 15, pin=True)
+    s, q = (torch.from_numpy(a).pin_memory() for a in (seq, qual))
+    copy = lambda *ts: lambda: [t.to(dev, non_blocking=True)  # noqa: E731
+                                for t in ts]
+    return {"pack_reads_ms": best_host_ms(lambda: pack.pack_reads(seq)),
+            "pack_qual_ok_ms": best_host_ms(
+                lambda: pack.pack_qual_ok(qual, 15)),
+            "h2d_packed_count_ms": time_ms(copy(pk, nm), 20),
+            "h2d_ascii_count_ms": time_ms(copy(s), 20),
+            "h2d_packed_filter_ms": time_ms(copy(pk, nm, ok), 20),
+            "h2d_ascii_filter_ms": time_ms(copy(s, q), 20),
+            "packed_bytes_count": pk.numel() + nm.numel(),
+            "ascii_bytes_count": s.numel(),
+            "packed_bytes_filter": pk.numel() + nm.numel() + ok.numel(),
+            "ascii_bytes_filter": s.numel() + q.numel()}
+
+
+def phase_pack(data, hl_path):
+    """Packed transport on the card. The path, with the unpack launch
+    count set to 0 just before it and read just after: the subject's
+    mate-1 FASTQ in batches of BATCH x READ_PAD, each packed on the host
+    (pack_batch, min_q 15), copied on a side stream a batch ahead and
+    unpacked by the kernel (pack.packed_feed), then counted into a
+    DeviceKmerTable and filtered by window_hits against the run's
+    HashList; the table and the hits must equal those of the same
+    batches fed as ASCII. Then the kernel against its plain versions on
+    the first such batch and at tools/bench.py's shape (L 152), both
+    planes exactly, timed beside its byte bound; and each feed's host
+    and copy costs a batch."""
+    from rufus_tpu_torch.convert import hashlist_keys_to_int64
+    from rufus_tpu_torch.io import fastq, hashlist as hio
+    from rufus_tpu_torch.ops import cuda_filter, pack
+    from rufus_tpu_torch.ops.table import DeviceKmerTable, count_step
+    from rufus_tpu_torch.pipeline import RufusPipeline
+    from rufus_tpu_torch.tools import bench
+
+    dev = torch.device("cuda")
+    fbs = list(fastq.fastq_batches(data["child"][0], BATCH, READ_PAD,
+                                   text=True))
+    batches = [(b.seq, b.qual) for b in fbs]
+    lens = [torch.from_numpy(b.lens).to(dev) for b in fbs]
+    table = hashlist_keys_to_int64(hio.hashlist_keys(hl_path, K), dev)
+    index = cuda_filter.hashlist_index(table, K)
+
+    def count_and_filter(feed):
+        t = DeviceKmerTable(K, dev)
+        hits = []
+        for (r, q), n in zip(feed, lens):
+            t.fold_batch(count_step(r, K))
+            hits.append(cuda_filter.window_hits(r, q, n, table, K, 15,
+                                                index))
+        t.flush()
+        return t, torch.cat(hits)
+
+    ascii_t, ascii_hits = count_and_filter(
+        (torch.from_numpy(s).to(dev), torch.from_numpy(q).to(dev))
+        for s, q in batches)
+    pack.unpack.launches = 0
+    t0 = time.perf_counter()
+    packed_t, packed_hits = count_and_filter(pack.packed_feed(
+        RufusPipeline._prefetch((pack.pack_batch(s, q, 15, pin=True)
+                                 for s, q in batches), depth=2), dev))
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = pack.unpack.launches
+    equal = (torch.equal(ascii_t.keys, packed_t.keys)
+             and torch.equal(ascii_t.counts, packed_t.counts)
+             and torch.equal(ascii_hits, packed_hits))
+    reads = sum(len(s) for s, _ in batches)
+    del ascii_t, packed_t
+
+    def planes(seq, qual):
+        _, ts = pack.pack_batch(seq, qual, 15)
+        return [t.to(dev) for t in ts]
+
+    seq, qual = batches[0]
+    row = {"name": "unpack", "route": "cuda",
+           "source": "rufus_tpu_torch/csrc/unpack.cu",
+           "replaces": "rufus_tpu/ops/pack.py:66", "launches": launches,
+           **unpack_row(*planes(seq, qual), READ_PAD)}
+    bseq, bqual = bench.make_inputs(BATCH, 1)[0][0]
+    row["bench_shape"] = unpack_row(*planes(bseq, bqual), bench.L)
+    row["max_abs_err"] = max(row["max_abs_err"],
+                             row["bench_shape"]["max_abs_err"])
+    share_of_bound(row)
+    emit({"phase": "pack", "batches": len(batches), "reads": reads,
+          "path_s": path_s, "launches": launches, "equal": equal,
+          "kept_reads": int((packed_hits >= 1).sum()),
+          "feed": feed_costs(seq, qual),
+          "feed_bench_shape": feed_costs(bseq, bqual)})
+    emit({"phase": "kernel", **row})
+    if not equal:
+        raise AssertionError("the packed feed's table or hits differ from "
+                             "the ASCII feed's")
+    if launches != len(batches):
+        raise AssertionError(f"the packed feed launched unpack {launches} "
+                             f"times for {len(batches)} batches")
+    if row["max_abs_err"] != 0:
+        raise AssertionError(f"unpack disagrees with its plain versions "
+                             f"(max_abs_err {row['max_abs_err']})")
+    return row
+
+
+TOOLS = (
+    ("bench", [], 600),
+    ("sortbench", [], 300),
+    ("alignbench", ["--mbp", str(ALIGNBENCH_MBP)], 600),
+)
+
+
+def phase_tools(work):
+    """The bench, sort and alignment tools, each as its own process
+    (python -m rufus_tpu_torch.tools.<name>); each prints its own JSON
+    line, relayed here, and the tools line sums them up."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary, outs = {}, {}
+    for name, argv, limit in TOOLS:
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", f"rufus_tpu_torch.tools.{name}", *argv,
+             "--out", os.path.join(work, f"{name}.json")], cwd=REPO,
+            capture_output=True, text=True, timeout=limit)
+        seconds = time.perf_counter() - t0
+        if p.returncode != 0:
+            raise AssertionError(f"tools.{name} failed ({p.returncode}):\n"
+                                 f"{p.stdout[-4000:]}{p.stderr[-4000:]}")
+        line = p.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        outs[name] = out = json.loads(line)
+        summary[name] = {"seconds": seconds, "device": (
+            out.get("detail", out)["device"])}
+    bench, align = outs["bench"], outs["alignbench"]
+    d = bench["detail"]
+    summary["bench"].update(
+        value=bench["value"], vs_baseline=bench["vs_baseline"],
+        count_reads_per_s=d["count_reads_per_s"],
+        filter_reads_per_s=d["filter_reads_per_s"],
+        count_with_h2d_reads_per_s=d["count_with_h2d_reads_per_s"],
+        filter_with_h2d_reads_per_s=d["filter_with_h2d_reads_per_s"],
+        launches=d["launches"])
+    summary["alignbench"].update(
+        genome_mbp=align["genome_mbp"], mapped=align["mapped"],
+        reads=align["reads"], alignments_per_s=align["alignments_per_s"])
+    emit({"phase": "tools", **summary})
+    if min(d["launches"].values()) <= 0:
+        raise AssertionError(f"the bench tool's path left a kernel "
+                             f"unlaunched: {d['launches']}")
+    if align["mapped"] < 0.9 * align["reads"]:
+        raise AssertionError(f"alignbench mapped {align['mapped']} of "
+                             f"{align['reads']} reads")
+    if any(v["device"] == "cpu" for v in summary.values()):
+        raise AssertionError("a tool ran on the CPU")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1749,6 +1992,8 @@ def main():
                               for _ in range(c)])
         phase_slice_busy(sl, rows)
         rows.append(phase_radix(data, work, args.seed))
+        rows.append(phase_pack(data, hl_path))
+        phase_tools(work)
         phase_scaling(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)

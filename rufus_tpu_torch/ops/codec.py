@@ -128,6 +128,13 @@ def str_to_kmer(s: str) -> int:
     return v
 
 
+def kmer_to_str(v: int, k: int) -> str:
+    out = []
+    for i in range(k - 1, -1, -1):
+        out.append("ACGT"[(v >> (2 * i)) & 3])
+    return "".join(out)
+
+
 def strs_to_kmers(seqs, k: int) -> np.ndarray:
     """Vectorized parse of equal-length k-mer strings -> uint64 array."""
     buf = np.frombuffer("".join(seqs).encode(), dtype=np.uint8).reshape(-1, k)

@@ -119,6 +119,11 @@ class KmerTable:
         hit = self.keys[idx] == kmers
         return np.where(hit, self.counts[idx], 0)
 
+    def query_strs(self, seqs) -> np.ndarray:
+        """Counts of k-mer strings, each canonicalized first."""
+        canon = [codec.canonical_str(s.upper()) for s in seqs]
+        return self.query(codec.strs_to_kmers(canon, self.k))
+
     def histo(self, max_count: int = 10001,
               chunk: int = 1 << 26) -> np.ndarray:
         """Count histogram; bin i = #kmers with count i, the last bin holds
@@ -307,6 +312,34 @@ def concat_flat(part_paths: list[str], out_path: str,
         for p, (_, n) in zip(part_paths, heads):
             copy_section(f, p, KmerTable.FLAT_HEAD + 8 * n, 8 * n)
     return KmerTable.load_flat(out_path)
+
+
+def build_hashlist_4col(subject: KmerTable, parents: list[KmerTable],
+                        min_cov_subject: int, max_cov_control: int,
+                        max_coverage: int = 1200):
+    """The legacy RUFUS.Build path (RUFUS.Build.cpp:224-283) as host table
+    queries: (keys, summed parent count, subject count) of the subject
+    k-mers with count in [min_cov_subject, max_coverage] whose summed
+    parent count is <= max_cov_control, the rows of the 4-column HashList
+    `longhash \\t parentDepth \\t subjCount \\t kmer`."""
+    keep = (subject.counts >= min_cov_subject) & (subject.counts <= max_coverage)
+    keys = subject.keys[keep]
+    scnt = subject.counts[keep]
+    total_par = np.zeros(len(keys), dtype=np.int64)
+    for p in parents:
+        total_par += p.query(keys)
+    keep2 = total_par <= max_cov_control
+    return keys[keep2], total_par[keep2], scnt[keep2]
+
+
+def population_filter(mutant: KmerTable, population: KmerTable,
+                      max_pop_depth: int) -> KmerTable:
+    """The RUFUS.1kg.filter role: drop the mutant k-mers whose count in a
+    population table (1000 Genomes common k-mers, say) passes
+    max_pop_depth."""
+    pop = population.query(mutant.keys)
+    keep = pop <= max_pop_depth
+    return KmerTable(mutant.k, mutant.keys[keep], mutant.counts[keep])
 
 
 def absent_from(keys: torch.Tensor, control: torch.Tensor) -> torch.Tensor:

@@ -5,8 +5,10 @@ A pipeline run appends one JSON object per stage to its trace file: wall
 and CPU seconds, resident set size, the number of shards and, on CUDA
 devices, the peak of device memory allocated by PyTorch during the stage
 (the largest of its cards', and each card's when there are several).
-`malloc_trim` and `memory_attribution` are the JAX package's (its
-utils/trace.py).
+`MemSampler` samples `memory_attribution` in a thread, tagged with the
+live stage, for the peaks inside each stage. `vm_mb`, `malloc_trim`,
+`memory_attribution` and `MemSampler` are the JAX package's (its
+utils/trace.py), with the card's allocator in place of JAX's buffers.
 """
 
 from __future__ import annotations
@@ -24,6 +26,18 @@ def rss_mb() -> float:
         with open("/proc/self/status") as f:
             for line in f:
                 if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) / 1024.0
+    except OSError:
+        pass
+    return 0.0
+
+
+def vm_mb() -> float:
+    """Current virtual memory size in MB (the reference's vm_usage)."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmSize:"):
                     return int(line.split()[1]) / 1024.0
     except OSError:
         pass
@@ -130,12 +144,14 @@ class StageTimer:
         self.log_path = log_path
         self.cards = [d for d in devices if d.type == "cuda"]
         self.shards = shards
+        self.current: str = ""  # the live stage's name, for samplers
 
     @contextmanager
     def stage(self, name: str, **meta):
         import torch
 
         banner(name)
+        self.current = name
         for d in self.cards:
             torch.cuda.synchronize(d)
             torch.cuda.reset_peak_memory_stats(d)
@@ -164,3 +180,53 @@ class StageTimer:
             f"{s['stage']:<24} wall={s['wall_s']:>8.2f}s "
             f"cpu={s['cpu_s']:>8.2f}s rss={s['rss_mb']:>7.1f}MB"
             for s in self.stages)
+
+
+class MemSampler:
+    """A thread that records `memory_attribution` every `interval` seconds,
+    tagged with the StageTimer's live stage: the peaks inside a stage,
+    which its end-of-stage RSS misses, with named owners, and the
+    allocator's figures on the timer's first card (none on the CPU). Each
+    sample is also appended to `path` as a JSON line when given."""
+
+    def __init__(self, timer: StageTimer, path: str | None = None,
+                 interval: float = 10.0):
+        import threading
+
+        self.timer = timer
+        self.path = path
+        self.interval = interval
+        self.device = timer.cards[0] if timer.cards else None
+        self.samples: list[dict] = []
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.wait(self.interval):
+            rec = {"t": round(time.time(), 1), "stage": self.timer.current,
+                   **memory_attribution(self.device)}
+            self.samples.append(rec)
+            if self.path:
+                try:
+                    with open(self.path, "a") as f:
+                        f.write(json.dumps(rec) + "\n")
+                except OSError:
+                    pass
+
+    def start(self):
+        self._t.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        self._t.join(timeout=2 * self.interval)
+
+    def per_stage_peaks(self) -> dict:
+        """stage -> the sample with the highest RSS seen in that stage
+        ("(pre)" before the first stage)."""
+        peaks: dict[str, dict] = {}
+        for s in self.samples:
+            st = s.get("stage") or "(pre)"
+            if st not in peaks or s["rss_mb"] > peaks[st]["rss_mb"]:
+                peaks[st] = s
+        return peaks

@@ -934,3 +934,55 @@ def test_process_mesh_on_card_equals_cpu(layout):
         mesh = ShardMesh((torch.device("cpu"),) * local, rank=rank,
                          world=world)
         _assert_rank_equals(out, single, mesh, rows, args[2])
+
+
+def _packed_planes(rng, B, L):
+    """Reads with N, lowercase and IUPAC bases and quals, packed."""
+    from rufus_tpu_torch.ops import pack
+
+    reads = rng.choice(np.frombuffer(b"ACGTNacgtnRYKM", np.uint8),
+                       size=(B, L)).astype(np.uint8)
+    quals = rng.integers(33, 75, size=(B, L)).astype(np.uint8)
+    pk, nm = pack.pack_reads(reads)
+    return pk, nm, pack.pack_qual_ok(quals, 15)
+
+
+@pytest.mark.parametrize("L", [1, 7, 150, 151, 152, 160])
+def test_unpack_kernel(L):
+    """The unpack kernel equals its plain versions, each plane alone and
+    both from one launch, on a batch whose span does not end on a 16-byte
+    group (B odd)."""
+    from rufus_tpu_torch.ops import cuda_pack
+
+    dev = _card()
+    pk, nm, ok = (torch.from_numpy(a).to(dev)
+                  for a in _packed_planes(np.random.default_rng(L), 1001, L))
+    want_r = cuda_pack.unpack_reads_torch(pk, nm, L)
+    want_q = cuda_pack.unpack_qual_torch(ok, L)
+    before = cuda_pack.unpack.launches
+    r, q = cuda_pack.unpack(pk, nm, ok, L)
+    assert cuda_pack.unpack.launches == before + 1
+    assert torch.equal(r, want_r) and torch.equal(q, want_q)
+    assert torch.equal(cuda_pack.unpack(pk, nm, None, L)[0], want_r)
+    assert torch.equal(cuda_pack.unpack(None, None, ok, L)[1], want_q)
+    torch.cuda.synchronize()
+
+
+def test_unpack_kernel_refuses_malformed_planes():
+    from rufus_tpu_torch.ops import cuda_pack
+
+    dev = _card()
+    pk, nm, ok = (torch.from_numpy(a).to(dev)
+                  for a in _packed_planes(np.random.default_rng(0), 64, 150))
+    with pytest.raises(ValueError):  # a row too short for L
+        cuda_pack.unpack(pk, nm, None, 160)
+    with pytest.raises(ValueError):  # rows that disagree
+        cuda_pack.unpack(pk, nm[:10], None, 150)
+    with pytest.raises(TypeError):
+        cuda_pack.unpack(pk.to(torch.int32), nm, None, 150)
+    with pytest.raises(ValueError):  # planes on two devices
+        cuda_pack.unpack(pk, nm.cpu(), None, 150)
+    with pytest.raises(ValueError):  # not contiguous
+        wide = torch.zeros((64, 2 * pk.shape[1]), dtype=torch.uint8,
+                           device=dev)
+        cuda_pack.unpack(wide[:, ::2], nm, None, 150)
