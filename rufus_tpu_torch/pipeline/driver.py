@@ -79,8 +79,7 @@ from ..ops.table import (MERGE_BYTES, DeviceKmerTable, count_step,
                          subtract_step)
 from ..parallel import sharded
 from ..utils import shims
-from ..utils.trace import (StageTimer, Throughput, malloc_trim,
-                           memory_attribution)
+from ..utils.trace import StageTimer, malloc_trim, memory_attribution
 
 FASTQ_EXT = (".fastq", ".fq", ".fastq.gz", ".fq.gz")
 STOP_STAGES = ("", "jhash", "hashlist", "filter", "contig_align")  # "": all
@@ -156,6 +155,7 @@ class RufusPipeline:
         """`mesh`: the shards of the count, subtract, filter and pulls;
         None builds it from cfg.device (every visible card on "cuda", one
         shard on "cuda:i" or "cpu"), one shard with sharded "off"."""
+        t0 = time.perf_counter()
         self.cfg = cfg
         if mesh is None:
             mesh = sharded.make_mesh(1 if cfg.sharded == "off" else None,
@@ -187,6 +187,7 @@ class RufusPipeline:
         self._filter_reads = 0  # reads (pairs) the filter stage read
         self._ref_contigs = None
         self._ref_index = None
+        self._init_s = time.perf_counter() - t0  # for run()'s record
 
     def check_supported(self, entry: str = "run"):
         """Raise NotImplementedError for multipass counting on more than one
@@ -284,17 +285,27 @@ class RufusPipeline:
     # -- feeding ------------------------------------------------------------
 
     @staticmethod
-    def _prefetch(gen, depth: int = 3):
+    def _prefetch(gen, depth: int = 3, trace: StageTimer | None = None):
         """Run a generator in a thread that starts now, so host decoding of
         one sample overlaps device work on another; errors re-raise in the
-        consumer."""
+        consumer. With `trace`, the live stage records the reader's
+        `decode` (each step of `gen`, its opening included) and `put_wait`
+        (a full queue) spans and the consumer's `feed_wait` (an empty
+        one): which of the two sets the pace."""
+        span = (trace or StageTimer()).span
         q: queue.Queue = queue.Queue(maxsize=depth)
         done = object()
 
         def worker():
             try:
-                for item in gen:
-                    q.put(item)
+                it = iter(gen)
+                while True:
+                    with span("decode"):
+                        item = next(it, done)
+                    if item is done:
+                        break
+                    with span("put_wait"):
+                        q.put(item)
                 q.put(done)
             except BaseException as e:
                 q.put(e)
@@ -303,7 +314,8 @@ class RufusPipeline:
 
         def consume():
             while True:
-                item = q.get()
+                with span("feed_wait"):
+                    item = q.get()
                 if item is done:
                     return
                 if isinstance(item, BaseException):
@@ -420,9 +432,10 @@ class RufusPipeline:
                                  "pass stream=None")
             return self._count_sample_multipass(path, stub, lower, flat_path,
                                                 histo_path, progress_path)
-        meter = Throughput(name=f"count[{stub}] reads")
+        span = self.trace.span
         if stream is None:
-            stream = self._prefetch(self._batch_stream(path, progress_path))
+            stream = self._prefetch(self._batch_stream(path, progress_path),
+                                    trace=self.trace)
         runs: list[str] = []
 
         def spill_run(t):
@@ -436,76 +449,86 @@ class RufusPipeline:
         guard = cfg.spill_tables == "on" or (cfg.spill_tables == "auto"
                                              and self.device.type == "cuda")
         spill = spill_run if guard else None
+        n_reads = 0
+        loop_s = time.perf_counter()  # its steps and feed waits
         if self.mesh.n > 1:
             dev = sharded.ShardedKmerTable(self.mesh, cfg.k,
                                            splitters=self._splitters,
                                            budget=self._budget(), spill=spill)
             for reads in stream:
-                dev.fold_batch(sharded.local_count_step(self.mesh, reads,
-                                                        cfg.k))
-                meter.add(reads.shape[0])
+                with span("step"):
+                    dev.fold_batch(sharded.local_count_step(self.mesh, reads,
+                                                            cfg.k))
+                n_reads += reads.shape[0]
         else:
             dev = DeviceKmerTable(cfg.k, self.device, budget=self._budget(),
                                   spill=spill)
             for reads in stream:
-                dev.fold_batch(count_step(self._to_device(reads), cfg.k))
-                meter.add(reads.shape[0])
-        # the last fold may spill too: its run must be in `runs` before
-        # they are counted
-        dev.flush()
-        if self.mesh.n > 1 and self._splitters is None:
-            self._splitters = dev.splitters
-        if not progress.stream_complete(progress_path):
-            raise RuntimeError(f"count stream for {path} ended without the "
-                               f"completion sentinel ({progress_path})")
-        self._reads[stub] = meter.n
-        if runs:
-            # the last table joins the runs; their merge-sum applies the
-            # floor to final counts (a per-run floor would drop split counts)
-            runs.append(flat_path + f".run{len(runs)}")
-            dev.to_flat(runs[-1])
-            self._note_folds(stub, dev)
-            dev.release()
-            self._runs[stub] = len(runs)
-            t0 = time.perf_counter()
-            table = count.merge_flat_runs(runs, flat_path, lower_count=lower,
-                                          chunk=self._chunk(len(runs)),
-                                          device=self.device)
-            self._merge_s[stub] = time.perf_counter() - t0
-            for rp in runs:
-                os.remove(rp)
-            self._spill = True
-        else:
-            dev.apply_lower_count(lower)
-            self._note_folds(stub, dev)
-            if self._spill is None:
-                # decided once, from the first finished table: the samples'
-                # tables resident at once against the budget
-                per = 16 * dev.n_keys
-                n_samples = 1 + len(cfg.controls)
-                self._spill = (cfg.spill_tables == "on" or (
-                    cfg.spill_tables == "auto" and self.device.type == "cuda"
-                    and per * n_samples > self._budget()))
-                if self._spill:
-                    self._log(f"spilling count tables to host memmaps "
-                              f"({per / 2**30:.1f} GiB x {n_samples} samples "
-                              f"> {cfg.hbm_budget_gb} GiB)")
-            if self._spill:
-                table = dev.to_flat(flat_path)
+                with span("step"):
+                    dev.fold_batch(count_step(self._to_device(reads), cfg.k))
+                n_reads += reads.shape[0]
+        loop_s = time.perf_counter() - loop_s
+        with span("table_out"):
+            # the last fold may spill too: its run must be in `runs` before
+            # they are counted
+            dev.flush()
+            if self.mesh.n > 1 and self._splitters is None:
+                self._splitters = dev.splitters
+            if not progress.stream_complete(progress_path):
+                raise RuntimeError(f"count stream for {path} ended without "
+                                   f"the completion sentinel "
+                                   f"({progress_path})")
+            self._reads[stub] = n_reads
+            if runs:
+                # the last table joins the runs; their merge-sum applies the
+                # floor to final counts (a per-run floor would drop split
+                # counts)
+                runs.append(flat_path + f".run{len(runs)}")
+                dev.to_flat(runs[-1])
+                self._note_folds(stub, dev)
                 dev.release()
+                self._runs[stub] = len(runs)
+                t0 = time.perf_counter()
+                table = count.merge_flat_runs(runs, flat_path,
+                                              lower_count=lower,
+                                              chunk=self._chunk(len(runs)),
+                                              device=self.device)
+                self._merge_s[stub] = time.perf_counter() - t0
+                for rp in runs:
+                    os.remove(rp)
+                self._spill = True
             else:
-                table = dev.to_host()
-                self._dev_tables[stub] = dev
-                table.save(table_path)
-        if len(table) == 0:
-            raise RuntimeError(f"counting produced no kmers for {path}")
-        modeldist.write_histo(histo_path, table.histo())
-        self._log(f"count[{stub}]: {len(table)} unique kmers"
-                  + (f" ({len(runs)} spilled runs merged)" if runs else "")
-                  + f", {meter.rate():.0f} reads/s")
-        if self._spill:
-            gc.collect()
-            malloc_trim()
+                dev.apply_lower_count(lower)
+                self._note_folds(stub, dev)
+                if self._spill is None:
+                    # decided once, from the first finished table: the
+                    # samples' tables resident at once against the budget
+                    per = 16 * dev.n_keys
+                    n_samples = 1 + len(cfg.controls)
+                    self._spill = (cfg.spill_tables == "on" or (
+                        cfg.spill_tables == "auto"
+                        and self.device.type == "cuda"
+                        and per * n_samples > self._budget()))
+                    if self._spill:
+                        self._log(f"spilling count tables to host memmaps "
+                                  f"({per / 2**30:.1f} GiB x {n_samples} "
+                                  f"samples > {cfg.hbm_budget_gb} GiB)")
+                if self._spill:
+                    table = dev.to_flat(flat_path)
+                    dev.release()
+                else:
+                    table = dev.to_host()
+                    self._dev_tables[stub] = dev
+                    table.save(table_path)
+            if len(table) == 0:
+                raise RuntimeError(f"counting produced no kmers for {path}")
+            modeldist.write_histo(histo_path, table.histo())
+            self._log(f"count[{stub}]: {len(table)} unique kmers"
+                      + (f" ({len(runs)} spilled runs merged)" if runs else "")
+                      + f", {n_reads / loop_s:.0f} reads/s")
+            if self._spill:
+                gc.collect()
+                malloc_trim()
         return table
 
     def _note_folds(self, stub: str, dev):
@@ -533,35 +556,40 @@ class RufusPipeline:
         passes = cfg.count_passes
         part_paths = []
         folds = 0
+        span = self.trace.span
         for p in range(passes):
-            meter = Throughput(name=f"count[{stub}] pass{p} reads")
             stream = self._prefetch(self._batch_stream(
-                path, progress_path if p == 0 else None))
+                path, progress_path if p == 0 else None), trace=self.trace)
             dev = DeviceKmerTable(cfg.k, self.device,
                                   pending_budget=PENDING_KEYS // passes)
+            n_reads = 0
+            loop_s = time.perf_counter()  # its steps and feed waits
             for reads in stream:
-                keys = count_step(self._to_device(reads), cfg.k)
-                if self._pass_bounds is None:
-                    self._pass_bounds = [0, *make_splitters(keys, passes)
-                                         .tolist(), codec.SENTINEL]
-                    self._log(f"count multipass: {passes} key ranges, "
-                              "bounds from the first batch")
-                dev.fold_batch(select_range(keys, self._pass_bounds[p],
-                                            self._pass_bounds[p + 1]))
-                meter.add(reads.shape[0])
+                with span("step"):
+                    keys = count_step(self._to_device(reads), cfg.k)
+                    if self._pass_bounds is None:
+                        self._pass_bounds = [0, *make_splitters(keys, passes)
+                                             .tolist(), codec.SENTINEL]
+                        self._log(f"count multipass: {passes} key ranges, "
+                                  "bounds from the first batch")
+                    dev.fold_batch(select_range(keys, self._pass_bounds[p],
+                                                self._pass_bounds[p + 1]))
+                n_reads += reads.shape[0]
+            loop_s = time.perf_counter() - loop_s
             if p == 0:
                 if not progress.stream_complete(progress_path):
                     raise RuntimeError(
                         f"count stream for {path} ended without the "
                         f"completion sentinel ({progress_path})")
-                self._reads[stub] = meter.n
+                self._reads[stub] = n_reads
             dev.apply_lower_count(lower)
             pp = flat_path + f".pass{p}"
             dev.to_flat(pp)
             folds += dev.folds
             dev.release()
             part_paths.append(pp)
-            self._log(f"count[{stub}] pass {p}: {meter.rate():.0f} reads/s")
+            self._log(f"count[{stub}] pass {p}: "
+                      f"{n_reads / loop_s:.0f} reads/s")
         table = count.concat_flat(part_paths, flat_path)
         for pp in part_paths:
             os.remove(pp)
@@ -592,7 +620,8 @@ class RufusPipeline:
                         os.path.exists(cfg.wpath(stub + ext))
                         for ext in (".table.npz", ".table.flat")):
                     streams[stub] = self._prefetch(self._batch_stream(
-                        path, cfg.wpath(stub + ".Jelly.chr")))
+                        path, cfg.wpath(stub + ".Jelly.chr")),
+                        trace=self.trace)
             done = [self.count_sample(path, stub, low,
                                       stream=streams.get(stub))
                     for path, stub, low in jobs]
@@ -822,18 +851,22 @@ class RufusPipeline:
         progress_path = cfg.wpath(cfg.subject_stub + ".filter.chr")
         hl = self._hashlist_table(hl_path)
         kept = reads = 0
+        span = self.trace.span
         # tmp + rename: a crash mid-stage must not leave partial outputs
         # that the skip-resume logic would trust on the next run
         with open(m1_path + ".tmp", "w") as f1, \
                 open(m2_path + ".tmp", "w") as f2:
             for names, tensors in self._prefetch(
-                    self._pair_batches(progress_path), depth=2):
-                keep = self._keep_mask(tensors, hl)
-                host = [t.numpy() for t in tensors]
-                for i in np.flatnonzero(keep):
-                    self._write_kept(f1, names, i, *host[:3])
-                    self._write_kept(f2, names, i, *host[3:])
-                    kept += 1
+                    self._pair_batches(progress_path), depth=2,
+                    trace=self.trace):
+                with span("keep"):
+                    keep = self._keep_mask(tensors, hl)
+                with span("write"):
+                    host = [t.numpy() for t in tensors]
+                    for i in np.flatnonzero(keep):
+                        self._write_kept(f1, names, i, *host[:3])
+                        self._write_kept(f2, names, i, *host[3:])
+                        kept += 1
                 reads += len(names)
         os.rename(m1_path + ".tmp", m1_path)
         os.rename(m2_path + ".tmp", m2_path)
@@ -863,13 +896,17 @@ class RufusPipeline:
             batches = self._bam_batches(single=True)
         hl = self._hashlist_table(hl_path)
         kept = reads = 0
+        span = self.trace.span
         with open(out_path + ".tmp", "w") as out:
-            for names, tensors in self._prefetch(batches, depth=2):
-                keep = self._keep_mask(tensors, hl)
-                host = [t.numpy() for t in tensors]
-                for i in np.flatnonzero(keep):
-                    self._write_kept(out, names, i, *host)
-                    kept += 1
+            for names, tensors in self._prefetch(batches, depth=2,
+                                                 trace=self.trace):
+                with span("keep"):
+                    keep = self._keep_mask(tensors, hl)
+                with span("write"):
+                    host = [t.numpy() for t in tensors]
+                    for i in np.flatnonzero(keep):
+                        self._write_kept(out, names, i, *host)
+                        kept += 1
                 reads += len(names)
         os.rename(out_path + ".tmp", out_path)  # crash-safe skip-resume
         self._filter_reads = reads
@@ -1277,7 +1314,13 @@ class RufusPipeline:
         the Mate1 (single_end: Mutations.fastq) path (filter), interpret's
         inputs, the dict of stage_contig_align (contig_align), or, for the
         full run (""), the FINAL.vcf path, beside which it writes
-        FINAL.vcf.gz and its .tbi."""
+        FINAL.vcf.gz and its .tbi. When it returns, the trace gets a `run`
+        record: the wall of __init__ (`init_s`), run()'s own wall and CPU
+        seconds, its wall outside the stages and the resident set size."""
+        with self.trace.run(init_s=round(self._init_s, 6)):
+            return self._run()
+
+    def _run(self):
         cfg = self.cfg
         self.check_supported()
         t = self.trace

@@ -1,10 +1,17 @@
-"""Stage timers and throughput meters (the structured form of the
-reference's wall timers and reads/sec prints, RUFUS.Filter.cpp:178-183).
+"""Stage timers and spans (the structured form of the reference's wall
+timers and reads/sec prints, RUFUS.Filter.cpp:178-183).
 
 A pipeline run appends one JSON object per stage to its trace file: wall
 and CPU seconds, resident set size, the number of shards and, on CUDA
 devices, the peak of device memory allocated by PyTorch during the stage
-(the largest of its cards', and each card's when there are several).
+(the largest of its cards', and each card's when there are several). Each
+stage record also holds its spans (named blocks inside the stage, seconds
+and calls by name) and its `self_s`, the wall its own thread spent outside
+them; a whole run adds a `run` record. While `torch.profiler` records, a
+stage and each span on its thread also open a profiler range, named
+`stage:<stage>` and `stage:<stage>/<span>`: a trace reader tells the
+program's ranges from device work by that prefix, since the profiler puts
+a copy of each range on the device's timeline too.
 `MemSampler` samples `memory_attribution` in a thread, tagged with the
 live stage, for the peaks inside each stage. `vm_mb`, `malloc_trim`,
 `memory_attribution` and `MemSampler` are the JAX package's (its
@@ -13,11 +20,14 @@ utils/trace.py), with the card's allocator in place of JAX's buffers.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
+import threading
 import time
 from contextlib import contextmanager
-from dataclasses import dataclass, field
+
+STAGE_TAG = "stage:"  # the prefix of every profiler range the program opens
 
 
 def rss_mb() -> float:
@@ -102,40 +112,20 @@ def banner(msg: str, stream=None):
     print(f"~~~ {msg} ~~~", file=stream or sys.stderr, flush=True)
 
 
-@dataclass
-class Throughput:
-    """Items/second meter with periodic reporting."""
+def _profiler_range(name: str):
+    """A `torch.profiler` range named `name` while a profiler records, else
+    a no-op."""
+    import torch.autograd.profiler as prof
 
-    name: str = "items"
-    report_every: int = 1_000_000
-    stream: object = None
-    t0: float = field(default_factory=time.perf_counter)
-    n: int = 0
-    _next: int = 0
-
-    def __post_init__(self):
-        self._next = self.report_every
-
-    def add(self, n: int):
-        self.n += n
-        if self.n >= self._next:
-            self._next += self.report_every
-            self.report()
-
-    def rate(self) -> float:
-        dt = time.perf_counter() - self.t0
-        return self.n / dt if dt > 0 else 0.0
-
-    def report(self):
-        print(f"{self.name}: {self.n} so far, {self.rate():.0f}/s, "
-              f"rss={rss_mb():.0f}MB", file=self.stream or sys.stderr,
-              flush=True)
+    if prof._is_profiler_enabled:
+        return prof.record_function(name)
+    return contextlib.nullcontext()
 
 
 class StageTimer:
-    """Per-stage wall/CPU seconds and memory; `devices` are the torch
-    devices (the mesh's distinct cards) whose peak allocation each stage
-    records (CUDA only; the peak counters are reset at each stage's
+    """Per-stage wall/CPU seconds, memory and spans; `devices` are the
+    torch devices (the mesh's distinct cards) whose peak allocation each
+    stage records (CUDA only; the peak counters are reset at each stage's
     start), `shards` the mesh's shards."""
 
     def __init__(self, log_path: str | None = None, devices=(),
@@ -145,6 +135,16 @@ class StageTimer:
         self.cards = [d for d in devices if d.type == "cuda"]
         self.shards = shards
         self.current: str = ""  # the live stage's name, for samplers
+        self._lock = threading.Lock()  # reader threads record spans too
+        # the live stage's spans, name -> [ns, calls, on the stage's
+        # thread], and that thread; None between stages
+        self._spans: dict | None = None
+        self._thread: int | None = None
+
+    def _write(self, rec: dict):
+        if self.log_path:
+            with open(self.log_path, "a") as f:
+                f.write(json.dumps(rec) + "\n")
 
     @contextmanager
     def stage(self, name: str, **meta):
@@ -152,28 +152,82 @@ class StageTimer:
 
         banner(name)
         self.current = name
-        for d in self.cards:
-            torch.cuda.synchronize(d)
-            torch.cuda.reset_peak_memory_stats(d)
-        w0, c0 = time.perf_counter(), time.process_time()
-        rec = {"stage": name, "shards": self.shards, **meta}
-        try:
-            yield rec
-        finally:
+        with _profiler_range(STAGE_TAG + name):
             for d in self.cards:
                 torch.cuda.synchronize(d)
-            peaks = [torch.cuda.max_memory_allocated(d) for d in self.cards]
-            if peaks:
-                rec["device_peak_bytes"] = max(peaks)
-            if len(peaks) > 1:
-                rec["device_peak_bytes_by_card"] = peaks
-            rec["wall_s"] = round(time.perf_counter() - w0, 3)
-            rec["cpu_s"] = round(time.process_time() - c0, 3)
-            rec["rss_mb"] = round(rss_mb(), 1)
-            self.stages.append(rec)
-            if self.log_path:
-                with open(self.log_path, "a") as f:
-                    f.write(json.dumps(rec) + "\n")
+                torch.cuda.reset_peak_memory_stats(d)
+            w0, c0 = time.perf_counter(), time.process_time()
+            rec = {"stage": name, "shards": self.shards, **meta}
+            spans = self._spans = {}
+            self._thread = threading.get_ident()
+            try:
+                yield rec
+            finally:
+                for d in self.cards:
+                    torch.cuda.synchronize(d)
+                peaks = [torch.cuda.max_memory_allocated(d)
+                         for d in self.cards]
+                if peaks:
+                    rec["device_peak_bytes"] = max(peaks)
+                if len(peaks) > 1:
+                    rec["device_peak_bytes_by_card"] = peaks
+                wall = time.perf_counter() - w0
+                rec["wall_s"] = round(wall, 3)
+                rec["cpu_s"] = round(time.process_time() - c0, 3)
+                rec["rss_mb"] = round(rss_mb(), 1)
+                with self._lock:
+                    self._spans = self._thread = None
+                    rec["spans"] = {
+                        n: {"s": round(ns / 1e9, 6), "n": calls,
+                            **({} if own else {"thread": "reader"})}
+                        for n, (ns, calls, own) in spans.items()}
+                    own_ns = sum(ns for ns, _, own in spans.values() if own)
+                rec["self_s"] = round(wall - own_ns / 1e9, 6)
+                self.stages.append(rec)
+                self._write(rec)
+
+    @contextmanager
+    def span(self, name: str):
+        """Time the block into the live stage's span `name` (nothing
+        outside a stage). From the stage's own thread the block also opens
+        the profiler range `stage:<stage>/<name>` while a profiler records;
+        a span from another thread (a reader) is kept as such and left out
+        of the stage's `self_s`. Touches no device."""
+        spans = self._spans
+        if spans is None:
+            yield
+            return
+        own = threading.get_ident() == self._thread
+        rng = (_profiler_range(f"{STAGE_TAG}{self.current}/{name}") if own
+               else contextlib.nullcontext())
+        t0 = time.perf_counter_ns()
+        try:
+            with rng:
+                yield
+        finally:
+            dt = time.perf_counter_ns() - t0
+            with self._lock:
+                e = spans.setdefault(name, [0, 0, own])
+                e[0] += dt
+                e[1] += 1
+
+    @contextmanager
+    def run(self, **meta):
+        """The `run` record of a whole run: its wall and CPU seconds, the
+        wall outside the stages that ran inside it (`outside_stages_s`)
+        and the resident set size, with `meta`; written when the block
+        returns, never when it raises. It opens no profiler range."""
+        w0, c0, first = time.perf_counter(), time.process_time(), \
+            len(self.stages)
+        rec = {"stage": "run", **meta}
+        yield rec
+        wall = time.perf_counter() - w0
+        rec["wall_s"] = round(wall, 3)
+        rec["cpu_s"] = round(time.process_time() - c0, 3)
+        rec["outside_stages_s"] = round(
+            wall - sum(s["wall_s"] for s in self.stages[first:]), 3)
+        rec["rss_mb"] = round(rss_mb(), 1)
+        self._write(rec)
 
     def summary(self) -> str:
         return "\n".join(
@@ -191,8 +245,6 @@ class MemSampler:
 
     def __init__(self, timer: StageTimer, path: str | None = None,
                  interval: float = 10.0):
-        import threading
-
         self.timer = timer
         self.path = path
         self.interval = interval
