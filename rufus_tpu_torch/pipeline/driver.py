@@ -365,15 +365,15 @@ class RufusPipeline:
                             break
                         yield seq[:n]
             elif kind == "bam":
-                qual = np.empty((B, W), np.uint8)
                 with native.NativeBam(part, threads=cfg.threads) as nb:
                     while True:
                         seq = self._host_empty(B, W)
-                        n = len(nb.read_batch(B, W, out=(seq.numpy(), qual,
+                        n = len(nb.read_batch(B, W, out=(seq.numpy(), None,
                                                          lens))[0])
                         if n == 0:
                             break
                         yield seq[:n]
+                    self._note_bam(nb, part)
                     if log:
                         for _ in progress.progress_records(
                                 map(_RefId, nb.ref_ids().tolist()),
@@ -738,30 +738,40 @@ class RufusPipeline:
         if chunk:
             yield batch(chunk)
 
+    def _note_bam(self, nb, path: str):
+        """A finished BAM stream's counters into the live stage's record
+        (its `bam` list): what the streaming decoder inflated and parsed,
+        and the most it held at once."""
+        self.trace.note("bam", {"file": os.path.basename(path),
+                                **nb.stats()})
+
     def _bam_batches(self, single: bool):
         """(Names, host tensors) batches of the subject BAM's stranded pair
-        (or single-end) stream, decoded into pinned memory: read_pad wide,
-        or as wide as the file's longest read up to MAX_READ."""
+        (or single-end) stream, decoded into pinned memory: read_pad wide
+        when every read of the batch fits, else MAX_READ wide (the reads
+        the decode cut at read_pad written whole into the wider rows)."""
         cfg = self.cfg
-        B = cfg.batch_size
+        B, W = cfg.batch_size, cfg.read_pad
         with native.NativeBam(cfg.subject, threads=max(cfg.threads, 2)) as nb:
-            W = max(cfg.read_pad, min(nb.max_read_len(), MAX_READ))
+            read = nb.read_se_batch if single else nb.read_pair_batch
+            mate = lambda: [  # noqa: E731
+                self._host_empty(B, W), self._host_empty(B, W),
+                self._host_empty(B, dtype=torch.int32)]
             while True:
-                mate = [self._host_empty(B, W), self._host_empty(B, W),
-                        self._host_empty(B, dtype=torch.int32)]
-                if single:
-                    out = mate
-                    names = nb.read_se_batch(B, W, out=[t.numpy()
-                                                        for t in out])[0]
-                else:
-                    out = mate + [self._host_empty(B, W),
-                                  self._host_empty(B, W),
-                                  self._host_empty(B, dtype=torch.int32)]
-                    names = nb.read_pair_batch(B, W, out=[t.numpy()
-                                                          for t in out])[0]
-                if len(names) == 0:
-                    return
-                yield names, [t[:len(names)] for t in out]
+                out = mate() if single else mate() + mate()
+                names = read(B, W, out=[t.numpy() for t in out])[0]
+                n = len(names)
+                if n == 0:
+                    break
+                out = [t[:n] for t in out]
+                if nb.longest > W:
+                    wide = [self._host_empty(n, MAX_READ) if t.dim() == 2
+                            else t for t in out]
+                    nb.widen([t.numpy() for t in out],
+                             [t.numpy() for t in wide])
+                    out = wide
+                yield names, out
+            self._note_bam(nb, cfg.subject)
 
     def _fastq_pair_batches(self):
         """(Names, host tensors) batches of -q1/-q2: decoded MAX_READ wide

@@ -6,8 +6,9 @@ and CPU seconds, resident set size, the number of shards and, on CUDA
 devices, the peak of device memory allocated by PyTorch during the stage
 (the largest of its cards', and each card's when there are several). Each
 stage record also holds its spans (named blocks inside the stage, seconds
-and calls by name) and its `self_s`, the wall its own thread spent outside
-them; a whole run adds a `run` record. While `torch.profiler` records, a
+and calls by name), its `self_s`, the wall its own thread spent outside
+them, and the lists its threads `note` (a BAM stream's counters); a whole
+run adds a `run` record. While `torch.profiler` records, a
 stage and each span on its thread also open a profiler range, named
 `stage:<stage>` and `stage:<stage>/<span>`: a trace reader tells the
 program's ranges from device work by that prefix, since the profiler puts
@@ -137,9 +138,10 @@ class StageTimer:
         self.current: str = ""  # the live stage's name, for samplers
         self._lock = threading.Lock()  # reader threads record spans too
         # the live stage's spans, name -> [ns, calls, on the stage's
-        # thread], and that thread; None between stages
+        # thread], that thread and its record; None between stages
         self._spans: dict | None = None
         self._thread: int | None = None
+        self._rec: dict | None = None
 
     def _write(self, rec: dict):
         if self.log_path:
@@ -160,6 +162,7 @@ class StageTimer:
             rec = {"stage": name, "shards": self.shards, **meta}
             spans = self._spans = {}
             self._thread = threading.get_ident()
+            self._rec = rec
             try:
                 yield rec
             finally:
@@ -176,7 +179,7 @@ class StageTimer:
                 rec["cpu_s"] = round(time.process_time() - c0, 3)
                 rec["rss_mb"] = round(rss_mb(), 1)
                 with self._lock:
-                    self._spans = self._thread = None
+                    self._spans = self._thread = self._rec = None
                     rec["spans"] = {
                         n: {"s": round(ns / 1e9, 6), "n": calls,
                             **({} if own else {"thread": "reader"})}
@@ -210,6 +213,13 @@ class StageTimer:
                 e = spans.setdefault(name, [0, 0, own])
                 e[0] += dt
                 e[1] += 1
+
+    def note(self, key: str, value):
+        """Append `value` to the live stage record's list `key` (nothing
+        outside a stage); from any thread, as a reader's counters."""
+        with self._lock:
+            if self._rec is not None:
+                self._rec.setdefault(key, []).append(value)
 
     @contextmanager
     def run(self, **meta):

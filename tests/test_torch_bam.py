@@ -6,20 +6,26 @@ inputs against the JAX pipeline's, every output file byte for byte.
 The trio is tests/test_torch_pipeline.py's 20 kbp one, written as aligned
 BAMs by ``synthetic.write_trio_bams`` (with its unmapped pairs and its
 secondary, duplicate and supplementary records), the child's with a few
-250 bp pairs added. Pipelines run with exome=True and -m 5 (no ModelDist
-fit), the JAX one with sharded="off". Tolerance: exact equality.
+250 bp pairs added. The streaming BAM decoder is read a block, a few blocks
+and the whole file a window, on that BAM, on it rewritten in small BGZF
+blocks and on it with mates far apart. Pipelines run with exome=True and
+-m 5 (no ModelDist fit), the JAX one with sharded="off". Tolerance: exact
+equality.
 """
 
+import gzip
+import json
 import os
 
 import numpy as np
 import pytest
 
+from rufus_tpu.io import bam as jbam
 from rufus_tpu.io import native as jnative
 from rufus_tpu.pipeline import RufusConfig as JaxConfig
 from rufus_tpu.pipeline import RufusPipeline as JaxPipeline
 from rufus_tpu_torch import synthetic
-from rufus_tpu_torch.io import bam, cram, fastq, native
+from rufus_tpu_torch.io import bam, bgzf, cram, fastq, native
 from rufus_tpu_torch.ops import _build
 from rufus_tpu_torch.pipeline import RufusConfig, RufusPipeline
 
@@ -243,6 +249,230 @@ def test_native_bam_out_arrays_are_filled_in_place(trio):
         native.NativeBam(data["father"][0])  # a FASTQ is not a BAM
 
 
+def _bgzf_blocks(path):
+    """(compressed, inflated) bytes of each BGZF block of `path` (the BC
+    subfield first, as every writer here puts it)."""
+    raw = open(path, "rb").read()
+    out, off = [], 0
+    while off < len(raw):
+        size = int.from_bytes(raw[off + 16:off + 18], "little") + 1
+        out.append((size, int.from_bytes(raw[off + size - 4:off + size],
+                                         "little")))
+        off += size
+    return out
+
+
+def _windows(path, window):
+    """(compressed, inflated) bytes of each window the decoder reads: the
+    first block alone, then the whole blocks that start within `window`
+    bytes."""
+    wins, comp, infl = [], 0, 0
+    for i, (c, n) in enumerate(_bgzf_blocks(path)):
+        comp, infl = comp + c, infl + n
+        if i == 0 or comp >= window:
+            wins.append((comp, infl))
+            comp = infl = 0
+    return wins + ([(comp, infl)] if comp else [])
+
+
+def _held_bound(path, window, peak_pending, longest=LONG):
+    """The most the decoder may hold for `path`: its four windows' buffers
+    (the compressed one reserved 128 KiB past each block, each grown at
+    most twofold), a carried record and the pending mates' arena (compacted
+    once its holes outweigh its live entries) and table."""
+    win = max(2 * (c + (2 << 16)) + 2 * n for c, n in _windows(path, window))
+    entry = 11 + 255 + longest * 3 // 2 + 1
+    pending = (2 * (2 * peak_pending * entry + (1 << 16) + entry)
+               + 16 * max(1024, 4 * peak_pending))
+    return 4 * win + 2 * (entry + 64) + pending
+
+
+def _write_bgzf(data: bytes, path, block: int):
+    """`data` as BGZF blocks of `block` bytes and the EOF block."""
+    with open(path, "wb") as f:
+        for i in range(0, len(data), block):
+            f.write(bgzf._bgzf_block(data[i:i + block]))
+        f.write(bgzf.BGZF_EOF)
+
+
+@pytest.fixture(scope="module")
+def bam_cases(trio, tmp_path_factory):
+    """The child's BAM as written (blocks of 0xFF00 bytes); rewritten in
+    blocks of 300 bytes, so that every record straddles blocks; and with
+    the second record of every other name moved past the unmapped pairs at
+    the end of the file, so that about a thousand mates wait far apart."""
+    d = tmp_path_factory.mktemp("bamcases")
+    child = trio[2]["child"]
+    small = str(d / "small.bam")
+    _write_bgzf(gzip.decompress(open(child, "rb").read()), small, 300)
+    refs, records = bam.read_bam(child)
+    order, near, far = {}, [], []
+    for r in records:
+        seen = r.name in order
+        order.setdefault(r.name, len(order))
+        (far if seen and order[r.name] % 2 == 0 else near).append(r)
+    spread = str(d / "far.bam")
+    bam.write_bam(spread, refs, near + far, index=False)
+    return {"child": child, "small_blocks": small, "far_mates": spread}
+
+
+def _drain(read):
+    """Batches of `read()` until an empty one."""
+    out = []
+    while True:
+        b = read()
+        if not len(b[0]):
+            return out
+        out.append(b)
+
+
+@pytest.mark.parametrize("window", [1, 20_000, 1 << 40],
+                         ids=["block", "blocks", "file"])
+@pytest.mark.parametrize("stream", ["records", "single", "pairs"])
+@pytest.mark.parametrize("case", ["child", "small_blocks", "far_mates"])
+def test_streaming_decoder_matches_the_reference(bam_cases, case, stream,
+                                                 window):
+    """Each stream, a window at a time, equals the JAX package's decoder
+    (records and pairs, read_pad 160 with the cut reads widened to 1024)
+    and io/bam.py (single-end), byte for byte; its counters add up to the
+    file, and it holds two windows and the pending mates, not the file."""
+    path = bam_cases[case]
+    jb = jnative.NativeBam(path, threads=3)
+    n_records = len(jb)
+    with native.NativeBam(path, threads=3, window=window) as nb:
+        if stream == "records":
+            got = _drain(lambda: nb.read_batch(333, 160))
+            want = _drain(lambda: jb.read_batch(333, 160))
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                for a, b in zip(g, w):
+                    np.testing.assert_array_equal(a, b)
+            seq = np.empty((333, 160), np.uint8)
+            lens = np.zeros(333, np.int32)
+            with native.NativeBam(path, window=window) as bare:
+                for w in want:  # no qualities asked, none decoded
+                    s, q, l = bare.read_batch(333, 160, out=(seq, None, lens))
+                    assert q is None
+                    np.testing.assert_array_equal(s, w[0])
+                    np.testing.assert_array_equal(l, w[2])
+        elif stream == "pairs":
+            wide_ref = jnative.NativeBam(path)
+            widened = 0
+            while True:  # batch by batch: widen reads the last batch
+                names, *arrs = nb.read_pair_batch(333, 160)
+                jn, *jarrs = jb.read_pair_batch(333, 160)
+                if not len(names):
+                    break
+                assert list(names) == jn
+                for a, b in zip(arrs, jarrs):
+                    np.testing.assert_array_equal(a, b)
+                wn, *warrs = wide_ref.read_pair_batch(333, 1024)
+                assert list(names) == wn
+                if nb.longest > 160:
+                    widened += 1
+                    n = len(names)
+                    arrs = nb.widen(arrs, [np.empty((n, 1024), np.uint8)
+                                           if a.ndim == 2 else a
+                                           for a in arrs])
+                    for a, b in zip(arrs, warrs):
+                        np.testing.assert_array_equal(a, b)
+                assert _rows(*arrs[:3]) == _rows(*warrs[:3])
+                assert _rows(*arrs[3:]) == _rows(*warrs[3:])
+            assert len(jn) == 0 and widened >= 1
+            wide_ref.close()
+        else:
+            got = [(n, a.decode(), b.decode())
+                   for names, s, q, l in _drain(
+                       lambda: nb.read_se_batch(700, 1024))
+                   for n, (a, b) in zip(names, _rows(s, q, l))]
+            assert got == list(jbam.bam_to_single_fastq(path))
+        st = nb.stats()
+    jb.close()
+    blocks = _bgzf_blocks(path)
+    assert st["records"] == n_records
+    assert st["compressed_bytes"] == os.path.getsize(path)
+    assert st["inflated_bytes"] == sum(n for _, n in blocks)
+    assert st["windows"] == len(_windows(path, window))
+    assert (st["peak_pending"] > 0) == (stream == "pairs")
+    assert st["peak_held_bytes"] <= _held_bound(path, window,
+                                                st["peak_pending"])
+    if window == 1 and case != "far_mates":
+        assert st["peak_held_bytes"] < st["inflated_bytes"] / 2
+
+
+@pytest.mark.parametrize("fault", ["cut_record", "cut_block",
+                                   "corrupt_block", "corrupt_crc"])
+def test_streaming_decoder_raises_on_a_bad_file(trio, tmp_path, fault):
+    """A BAM cut off inside a record (good BGZF blocks), one cut off inside
+    a block, one with corrupt deflate data and one with a block's CRC
+    wrong raise IOError from every stream and from a pass of its own, at
+    every window; none ends short without a word."""
+    src = trio[2]["child"]
+    raw = open(src, "rb").read()
+    blocks = _bgzf_blocks(src)
+    mid = sum(c for c, _ in blocks[:len(blocks) // 2])
+    path = str(tmp_path / "bad.bam")
+    bad = bytearray(raw)
+    if fault == "cut_record":
+        _write_bgzf(gzip.decompress(raw)[:-100], path, 0xFF00)
+    elif fault == "cut_block":
+        open(path, "wb").write(raw[:mid + 100])
+    elif fault == "corrupt_block":
+        bad[mid + 40] ^= 0xFF  # inside the middle block's deflate data
+        open(path, "wb").write(bytes(bad))
+    else:
+        bad[mid + blocks[len(blocks) // 2][0] - 8] ^= 0xFF
+        open(path, "wb").write(bytes(bad))
+    reads = (lambda nb: nb.read_batch(500, 160),
+             lambda nb: nb.read_pair_batch(500, 160),
+             lambda nb: nb.read_se_batch(500, 160),
+             lambda nb: (range(len(nb)),))
+    for window in (1, 20_000, 1 << 40):
+        for read in reads:
+            with native.NativeBam(path, window=window) as nb:
+                with pytest.raises(IOError):
+                    _drain(lambda: read(nb))
+
+
+def test_streaming_decoder_under_many_threads(bam_cases):
+    """More inflate threads than cores on windows of a few hundred small
+    blocks, and handles closed mid-stream while their pool works: every
+    stream still equals the JAX package's decoder."""
+    path = bam_cases["small_blocks"]
+    jb = jnative.NativeBam(path)
+    want = _drain(lambda: jb.read_pair_batch(200, 160))
+    jb.close()
+    threads = 4 * (os.cpu_count() or 1)
+    for _ in range(3):
+        with native.NativeBam(path, threads=threads, window=2_000) as nb:
+            got = _drain(lambda: nb.read_pair_batch(200, 160))
+        assert len(got) == len(want)
+        for (gn, *g), (wn, *w) in zip(got, want):
+            assert list(gn) == wn
+            for a, b in zip(g, w):
+                np.testing.assert_array_equal(a, b)
+    for _ in range(20):
+        with native.NativeBam(path, threads=threads, window=2_000) as nb:
+            assert len(nb.read_pair_batch(200, 160)[0]) == 200
+
+
+def test_native_bam_serves_one_stream_until_reset(trio):
+    with native.NativeBam(trio[2]["father"]) as nb:
+        assert len(nb.read_batch(10, 160)[0]) == 10
+        for read in (nb.read_pair_batch, nb.read_se_batch):
+            with pytest.raises(ValueError):
+                read(10, 160)
+        assert len(nb) > 10  # a pass of its own leaves the stream alone
+        assert len(nb.read_batch(10, 160)[0]) == 10
+        nb.reset()
+        names, s1, *_ = nb.read_pair_batch(10, 160)
+        jb = jnative.NativeBam(trio[2]["father"])
+        jn, js1, *_ = jb.read_pair_batch(10, 160)
+        jb.close()
+        assert list(names) == jn
+        np.testing.assert_array_equal(s1, js1)
+
+
 @pytest.mark.parametrize("pad", [160, 120])
 def test_native_fastq_matches_fastq_batches(trio, pad):
     d, data, bams, _ = trio
@@ -443,6 +673,74 @@ def test_filter_does_not_cut_long_reads(trio, tmp_path):
     texts = [[open(p).read() for p in paths] for paths in outs]
     assert texts[0] == texts[1] == texts[2]
     assert texts[0][0] == f"@deep\n{s}\n+\n{'I' * len(s)}\n"
+
+
+@pytest.fixture(scope="module")
+def bam_run(trio, tmp_path_factory):
+    """The port's slice from the trio's BAMs: its workdir and HashList."""
+    d, data, bams, _ = trio
+    wd = tmp_path_factory.mktemp("bamrun")
+    RufusPipeline(RufusConfig(**_kwargs(
+        wd, bams["child"], [bams["mother"], bams["father"]],
+        device="cpu"))).run()
+    return wd, str(next(wd.glob("*.HashList")))
+
+
+@pytest.mark.parametrize("batch", [97, 2048])
+def test_bam_filter_widens_batch_by_batch(trio, bam_run, tmp_path, batch):
+    """The BAM pair stream takes its width batch by batch: read_pad where
+    every read of the batch fits, MAX_READ where one of the child's LONG
+    reads falls; the kept pairs are the JAX package's, byte for byte."""
+    d, data, bams, _ = trio
+    _, hl = bam_run
+    cfg = RufusConfig(**_kwargs(tmp_path / "port", bams["child"],
+                                [bams["mother"], bams["father"]],
+                                device="cpu", batch_size=batch))
+    pipe = RufusPipeline(cfg)
+    widths = []
+    keep_mask = pipe._keep_mask
+
+    def recording(tensors, table):
+        widths.append(tensors[0].shape[1])
+        return keep_mask(tensors, table)
+
+    pipe._keep_mask = recording
+    port = pipe.stage_filter(hl)
+    jax = JaxPipeline(JaxConfig(**_kwargs(
+        tmp_path / "jax", bams["child"], [bams["mother"], bams["father"]],
+        sharded="off"))).stage_filter(hl)
+    texts = [[open(p).read() for p in paths] for paths in (port, jax)]
+    assert texts[0] == texts[1]
+    assert any(len(r[1]) == LONG for r in _fastq_records(port[0]))
+    assert 1024 in widths
+    assert (160 in widths) == (batch == 97)
+
+
+def test_bam_stage_records_carry_the_decoder_counter(trio, bam_run):
+    """Each BAM stream of the count and the filter leaves its decoder's
+    counters in the stage's record: the whole file inflated and parsed, a
+    window at a time, holding two windows and the pending mates."""
+    d, data, bams, _ = trio
+    wd, _ = bam_run
+    with open(wd / "Intermediates" / "trace.jsonl") as f:
+        recs = {r["stage"]: r for r in map(json.loads, f)}
+    paths = {os.path.basename(p): p for p in bams.values()}
+    for stage, files in (("count", ["child.bam", "father.bam",
+                                    "mother.bam"]),
+                         ("filter", ["child.bam"])):
+        entries = recs[stage]["bam"]
+        assert sorted(e["file"] for e in entries) == files
+        for e in entries:
+            path = paths[e["file"]]
+            assert set(e) == {"file", *native.NativeBam.STATS}
+            assert e["compressed_bytes"] == os.path.getsize(path)
+            assert e["inflated_bytes"] == sum(n for _, n in
+                                              _bgzf_blocks(path))
+            assert e["records"] == len(list(bam.read_bam(path)[1]))
+            assert e["windows"] == len(_windows(path, native.BAM_WINDOW))
+            assert (e["peak_pending"] > 0) == (stage == "filter")
+            assert e["peak_held_bytes"] <= _held_bound(
+                path, native.BAM_WINDOW, e["peak_pending"])
 
 
 def test_cli_reads_cram_with_its_reference(trio, tmp_path, monkeypatch):

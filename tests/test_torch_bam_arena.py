@@ -1,11 +1,13 @@
 """The native BAM decoder (rufus_tpu_torch/native/bamdecode.cpp) on a BAM
-whose record arena (names, bases and qualities) passes 4 GiB: 14,500,000
-unmapped 150-base records, 309 arena bytes each, 4.48 GB in all. Every
-record is read back in order and must carry its own name, bases and
-qualities (a 32-bit arena offset wraps past 4 GiB and reads another
-record's bytes). It is slow and needs about 12 GiB of host memory, so it
-is marked slow and left out of the tier-1 run; it imports neither JAX nor
-rufus_tpu:
+whose names, bases and qualities pass 4 GiB: 14,500,000 unmapped 150-base
+records, 309 bytes of them each, 4.48 GB in all (3.93 GB of BAM records
+inflated). The decoder streams the file a window of BGZF blocks at a time
+and keeps no copy of it, whatever its size; every record is read back in
+order and must carry its own name, bases and qualities (a 32-bit offset
+anywhere in the path would wrap past 4 GiB and read another record's
+bytes). It is slow (about 4 minutes on an 8-core host) and the test's own
+arrays take about 3 GB of host memory, so it is marked slow and left out of
+the tier-1 run; it imports neither JAX nor rufus_tpu:
 
     python -m pytest -q -p no:cacheprovider --noconftest -m slow tests/test_torch_bam_arena.py
 """
