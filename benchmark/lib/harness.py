@@ -2,17 +2,20 @@
 trace, and the comparison that decides `correct`.
 
 Set-up makes the trio from the seed (on the run's device), writes it as the
-configuration's input files, loads the program's kernels and decoders (built
-into the checkout at first use) and runs one untimed warm-up job. The
-window is closed-loop: one user runs trio after trio, each job one call of
-``RufusPipeline.run()`` in a fresh workdir on the same input files, and the
-window holds the whole jobs that started before the jobs' summed wall time
-reached ``seconds``. Between jobs, off the clock, the harness reads the
-job's outputs and its stage records, keeps one copy of each distinct set of
-outputs, deletes the workdir and times a fixed loop on the host (the host
-witness, on stderr beside each job's wall time). Once the window has closed
-and the device peak is read, the plain reference works the expected outputs
-out from the generator's reads and each distinct set is compared with them.
+configuration's input files, on the WGS route finds the child's depth model
+of the traffic's numbers (``depthmodel.py``; written into the checkout at
+first use, like the program's kernels and decoders), loads the kernels and
+decoders and runs one untimed warm-up job. The window is closed-loop: one
+user runs trio after trio, each job one call of ``RufusPipeline.run()`` in a
+fresh workdir on the same input files, and the window holds the whole jobs
+that started before the jobs' summed wall time reached ``seconds``. Before
+each job, off the clock, the model files are linked into its workdir.
+Between jobs, off the clock, the harness reads the job's outputs and its
+stage records, keeps one copy of each distinct set of outputs, deletes the
+workdir and times a fixed loop on the host (the host witness, on stderr
+beside each job's wall time). Once the window has closed and the device peak
+is read, the plain reference works the expected outputs out from the
+generator's reads and each distinct set is compared with them.
 """
 
 from __future__ import annotations
@@ -35,11 +38,13 @@ import torch
 from ..gen import trio as gen
 from ..reference import compare
 from ..roofline import kernels as roofline
+from . import depthmodel
 from .devtrace import STAGE_TAG, WINDOW_TAG, DeviceTrace
 from .registry import BENCH_DIR, CHECKOUT, Registry
 
 BANNED = ("jax", "jaxlib", "flax", "rufus_tpu")  # whole top-level names
 WORK_ROOT = os.path.join(CHECKOUT, "build", "benchmark")
+MODEL_ROOT = os.path.join(CHECKOUT, "build", "benchmark_models")
 FIXED_CUTOFF_MAX_DEPTH = 100_000_000  # the exome route (runRufus.sh:878-893)
 WITNESS_LOOPS = 500_000
 
@@ -80,21 +85,33 @@ def make_inputs(cell: dict, seed: int, device: str, data_dir: str,
     return trio, inputs, ref
 
 
+def wgs(cell: dict) -> bool:
+    """Whether the traffic states a depth model (the WGS route) rather
+    than a fixed cutoff alone (the exome route)."""
+    return "cutoff" in cell["traffic"]["model"]
+
+
 def route(cell: dict) -> dict:
-    """The HashList's count range on the traffic's fixed-cutoff route."""
-    return {"min_cov": cell["traffic"]["model"]["min_cov"],
-            "max_hash_depth": FIXED_CUTOFF_MAX_DEPTH}
+    """The HashList's count range: on the WGS route, the stated model's
+    cutoff and 5 x its raw peak (driver.py stage_model); on the exome
+    route, the traffic's fixed cutoff and the route's depth limit."""
+    m = cell["traffic"]["model"]
+    if wgs(cell):
+        return {"min_cov": m["cutoff"], "max_hash_depth": 5 * m["raw_peak"]}
+    return {"min_cov": m["min_cov"], "max_hash_depth": FIXED_CUTOFF_MAX_DEPTH}
 
 
 def job_config(cell: dict, inputs: dict, ref: str, workdir: str,
                device: str):
     """The RufusConfig of one job: the configuration's settings, the
-    traffic's stop stage and cutoff, and the inputs."""
+    traffic's stop stage and route, and the inputs. On the WGS route the
+    job finds the model files in its workdir and fits none."""
     from rufus_tpu_torch.pipeline import RufusConfig
 
     cfg, tr = cell["config"], cell["traffic"]
+    exome = not wgs(cell)
     kw = dict(cfg["rufus"], workdir=workdir, device=device, ref=ref,
-              exome=True, min_cov=route(cell)["min_cov"],
+              exome=exome, min_cov=route(cell)["min_cov"] if exome else 0,
               stop_after=tr["stop_after"])
     if cfg["input"] == "fastq":
         c = inputs["child"]
@@ -177,6 +194,11 @@ def measure(cell: dict, seed: int, seconds: float, trace: bool, device: str,
     marks.append(("build", time.perf_counter()))
     trio, inputs, ref = make_inputs(cell, seed, device, data_dir, genome_bp)
     marks.append(("data", time.perf_counter()))
+    histo = compare.stubs(inputs)["child"] + ".Jhash.histo"
+    models = ()
+    if wgs(cell):
+        models = depthmodel.cached(tr["model"], MODEL_ROOT, histo)
+        marks.append(("model", time.perf_counter()))
     if cuda:
         torch.cuda.empty_cache()
     cfg_of = lambda wd: job_config(cell, inputs, ref, wd, device)  # noqa: E731
@@ -185,6 +207,9 @@ def measure(cell: dict, seed: int, seconds: float, trace: bool, device: str,
 
     def job(name: str, traced: bool) -> dict:
         wd = os.path.join(run_dir, name)
+        if models:
+            os.makedirs(wd)
+            depthmodel.place(models, os.path.join(wd, histo))
         t0 = time.perf_counter()
         failed = False
         with torch.profiler.record_function(WINDOW_TAG):
@@ -248,8 +273,9 @@ def measure(cell: dict, seed: int, seconds: float, trace: bool, device: str,
     # the reference, once the window has closed and the peak is read
     exp = compare.Expected(trio, rufus, rt, device)
     fastq = cell["config"]["input"] == "fastq"
-    nums = [compare.numbers(g, exp, fastq) for g in groups]
     limits = tr["limits"]
+    nums = [{n: v for n, v in compare.numbers(g, exp, fastq).items()
+             if n in limits} for g in groups]
     worst = {name: 0 for name in limits}
     n_failed = 0
     for j in [warmup] + jobs:

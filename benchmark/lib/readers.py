@@ -84,3 +84,54 @@ def window_hits_roofline(ctx):
     return _share(ctx, "window_hits_kernel", r.window_hits_bytes(
         2 * w["pairs"], w["read_pad"], w["hashlist_keys"],
         w["filter_calls"]))
+
+
+def trio_s(ctx):
+    """Seconds a whole trio job takes, from FASTQ to FINAL.vcf.gz: the
+    window's summed job walls over its jobs, on the host clock."""
+    return ctx.window_s / len(ctx.jobs) if ctx.jobs else None
+
+
+def align_reads_s(ctx):
+    """Seconds of the read alignment stage a job: the kept pairs' seeding
+    and candidate DPs (sw_batch), pairing, duplicate marking, the SAM and
+    BAM writes."""
+    return ctx.stage_mean("align_reads")
+
+
+def assemble_s(ctx):
+    """Seconds of the assembly stage a job: the overlap rounds and the
+    annotations, host code."""
+    return ctx.stage_mean("assemble")
+
+
+def contig_align_s(ctx):
+    """Seconds of the contig stage a job: the contigs' alignment with
+    splits (sw_batch), the reference context, the k-mer tabs and the
+    genotype pulls from the three sample tables on the card."""
+    return ctx.stage_mean("contig_align")
+
+
+def interpret_s(ctx):
+    """Seconds a job of interpret (the depth model's load, the calls and
+    the genotyper) and polish (the sort, the filter and FINAL.vcf.gz with
+    its index), summed."""
+    a, b = ctx.stage_mean("interpret"), ctx.stage_mean("polish")
+    return None if a is None or b is None else a + b
+
+
+def sw_batch_roofline(ctx):
+    """sw_batch's share of its roofline, in %: the least time the window's
+    DP cells need (each cell's integer operations over the card's INT32
+    peak), the cells from the align_reads and contig_align records' ``dp``
+    summaries, over the device time the profiler gives the kernel."""
+    if ctx.trace is None:
+        return None
+    dev = ctx.trace.kernel_seconds("sw_ragged_kernel")
+    cells = sum(r[s]["dp"]["cells"] for r in ctx.jobs
+                for s in ("align_reads", "contig_align")
+                if "dp" in r.get(s, {}))
+    if not dev or not cells:
+        return None
+    return 100.0 * ctx.roofline.ops_seconds(
+        ctx.roofline.sw_batch_ops(cells)) / dev

@@ -1,0 +1,3 @@
+"""The count stage's device peak over fastq.full's window."""
+
+from benchmark.lib.readers import count_peak_bytes as read  # noqa: F401

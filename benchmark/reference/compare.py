@@ -17,6 +17,22 @@ counts what differs, so a sound job reads 0 on the exact ones:
   stream has its own order and mate assignment, so there a pair's mates
   are compared as a set and the pairs as a set).
 
+A job that runs past the filter also writes the back end's input and its
+calls, compared where the traffic's limits name them:
+
+- ``aligned_reads_off``: the read alignment's SAM
+  (``<stub>.Mutations.fastq.sam``, what assembly reads) against the kept
+  pairs: each primary record as (name, bases and qualities as sequenced),
+  records in one and not the other, every kept mate once (as a set, so
+  that it holds for a BAM's pair stream too);
+- ``vcf_wrong_rows``: rows of RUFUS's calls (``<stub>.V2.overlap.
+  hashcount.fastq.bam.FINAL.vcf``) that are not a spiked de novo site
+  (1-based) with the child's base, and each repeat of one that is;
+- ``vcf_missed_sites``: truth sites that no row calls so;
+- ``vcf_wrong_genotypes``: rows that call a truth site but not as the
+  truth holds it: the child heterozygous (its GT holds both alleles 0 and
+  1, at any copy number) and each parent homozygous reference (only 0).
+
 ``same`` tells whether two jobs' outputs are equal, so that the harness
 keeps one copy of each distinct set and compares it once.
 """
@@ -32,6 +48,9 @@ import torch
 from . import kmers
 
 SAMPLES = ("child", "mother", "father")
+ALIGNED_SAM = ".Mutations.fastq.sam"
+FINAL_VCF = ".V2.overlap.hashcount.fastq.bam.FINAL.vcf"
+_COMPLEMENT = str.maketrans("ACGTN", "TGCAN")
 
 
 def stubs(inputs: dict) -> dict:
@@ -74,6 +93,7 @@ class Expected:
                          zip(kmers.key_strings(hk, k), hc.cpu().tolist())]
         self.hashlist_keys = int(hk.numel())
         self.kept = np.flatnonzero(keep.cpu().numpy())
+        self.truth = truth(trio)
         self.outputs = {
             "tables": {s: (u.cpu().numpy().astype(np.uint64),
                            n.cpu().numpy()) for s, (u, n) in
@@ -82,6 +102,71 @@ class Expected:
             "hashlist": self.hashlist,
             "pairs": _pairs(c.names, c.seq1, c.qual1, c.seq2, c.qual2,
                             self.kept)}
+
+
+def truth(trio) -> list:
+    """The spiked de novo sites as VCF rows: (contig, 1-based position,
+    the parents' base, the child's base)."""
+    return [(trio.ref_name, int(p) + 1, chr(trio.genome[p]), chr(a))
+            for p, a in zip(trio.sites, trio.alt)]
+
+
+def read_vcf(path: str) -> list:
+    """A plain VCF's rows as (contig, position, REF, ALT, the samples' GT
+    fields), in file order; a missing file reads as no rows."""
+    try:
+        with open(path) as f:
+            lines = f.read().splitlines()
+    except OSError:
+        return []
+    return [(f[0], int(f[1]), f[3], f[4],
+             tuple(g.split(":")[0] for g in f[9:]))
+            for f in (line.split("\t") for line in lines
+                      if line and line[0] != "#")]
+
+
+def _denovo_gt(gts: tuple) -> bool:
+    """Whether the GTs (child, then the parents) are a de novo's: the
+    child holds both alleles 0 and 1, each parent 0 alone."""
+    alleles = [set(g.replace("|", "/").split("/")) for g in gts]
+    return (len(alleles) == 3 and {"0", "1"} <= alleles[0]
+            and all(a == {"0"} for a in alleles[1:]))
+
+
+def call_numbers(rows: list, sites: list) -> dict:
+    """vcf_wrong_rows, vcf_missed_sites and vcf_wrong_genotypes of VCF
+    `rows` (as read_vcf gives them) against the truth `sites` (contig,
+    position, REF, ALT)."""
+    want = set(sites)
+    seen = collections.Counter(r[:4] for r in rows)
+    wrong = sum(n if r not in want else n - 1 for r, n in seen.items())
+    return {"vcf_wrong_rows": wrong,
+            "vcf_missed_sites": sum(1 for t in want if not seen[t]),
+            "vcf_wrong_genotypes": sum(1 for r in rows if r[:4] in want
+                                       and not _denovo_gt(r[4]))}
+
+
+def read_sam(path: str) -> list:
+    """A SAM's primary records (neither secondary nor supplementary) as
+    (name, bases, qualities), the bases and qualities turned back to the
+    read's own strand; a missing file reads as no records."""
+    try:
+        with open(path) as f:
+            lines = f.read().splitlines()
+    except OSError:
+        return []
+    out = []
+    for line in lines:
+        if not line or line[0] == "@":
+            continue
+        f = line.split("\t")
+        flag, seq, qual = int(f[1]), f[9], f[10]
+        if flag & 0x900:
+            continue
+        if flag & 0x10:
+            seq, qual = seq.translate(_COMPLEMENT)[::-1], qual[::-1]
+        out.append((f[0], seq, qual))
+    return out
 
 
 def _fastq_records(path: str) -> list:
@@ -96,7 +181,9 @@ def read_outputs(wd: str, inputs: dict, k: int, min_cov: int) -> dict:
     that is missing reads as empty."""
     st = stubs(inputs)
     p = lambda name: os.path.join(wd, name)  # noqa: E731
-    out = {"tables": {}, "histos": {}, "hashlist": [], "pairs": []}
+    out = {"tables": {}, "histos": {}, "hashlist": [], "pairs": [],
+           "aligned": read_sam(p(st["child"] + ALIGNED_SAM)),
+           "vcf": read_vcf(p(st["child"] + FINAL_VCF))}
     for s in SAMPLES:
         try:
             with np.load(p(st[s] + ".table.npz")) as z:
@@ -150,7 +237,9 @@ def _histo_off(got, want) -> int:
 
 
 def numbers(got: dict, exp: Expected, ordered_pairs: bool) -> dict:
-    """The compared numbers of one set of outputs against the reference."""
+    """The compared numbers of one set of outputs against the reference:
+    the back end's too where `got` holds them (read_outputs' form; the
+    control makes none). The caller keeps those its limits name."""
     want = exp.outputs
     out = {
         "tables_off": sum(_table_off(got["tables"][s], want["tables"][s])
@@ -166,6 +255,12 @@ def numbers(got: dict, exp: Expected, ordered_pairs: bool) -> dict:
                            for p in ps]
         out["pairs_off"] = _multiset_off(norm(got["pairs"]),
                                          norm(want["pairs"]), False)
+    if "vcf" in got:
+        mates = [m for n, s1, q1, s2, q2 in want["pairs"]
+                 for m in ((n, s1, q1), (n, s2, q2))]
+        out["aligned_reads_off"] = _multiset_off(got["aligned"], mates,
+                                                 False)
+        out.update(call_numbers(got["vcf"], exp.truth))
     return out
 
 

@@ -14,7 +14,7 @@ from benchmark.lib.registry import Registry
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cell", ["fastq.front", "bam.front"])
+@pytest.mark.parametrize("cell", ["fastq.front", "bam.front", "fastq.full"])
 def test_the_control_fails(card, cell):
     c = Registry().cell(cell)
     limits = c["traffic"]["limits"]

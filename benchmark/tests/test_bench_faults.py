@@ -1,6 +1,7 @@
 """A run with the timed path broken underneath comes out not correct: the
 harness's run on the CPU (its look for a card skipped) at a tiny slice,
-once for each fault a cell can have (``benchmark/faults.py``)."""
+once for each fault a cell can have (``benchmark/faults.py``): the VCF's
+faults only where the jobs run to FINAL.vcf."""
 
 import contextlib
 import copy
@@ -25,17 +26,33 @@ def _run(cell, fault):
 
 @pytest.mark.parametrize("cell", ["fastq.front", "bam.front"])
 @pytest.mark.parametrize("fault", ["state_unchanged", "half_batch",
-                                   "pair_altered"])
+                                   "pair_altered", "half_kept"])
 def test_front_faults_are_caught(cell, fault):
     r = _run(Registry().cell(cell), fault)
     assert r["correct"] is False
     assert any(c["value"] > c["limit"] for c in r["checks"].values())
 
 
-def test_a_sound_run_is_correct():
-    cell = Registry().cell("fastq.front")
+@pytest.mark.parametrize("fault", sorted(faults.FAULTS))
+def test_full_faults_are_caught(fault):
+    """Each fault fails at least one of fastq.full's numbers; the back
+    end's own faults fail the number that watches where they are planted."""
+    r = _run(Registry().cell("fastq.full"), fault)
+    assert r["correct"] is False
+    bad = {n for n, c in r["checks"].items() if c["value"] > c["limit"]}
+    assert bad
+    if fault == "rows_altered":
+        assert bad == {"vcf_wrong_rows", "vcf_missed_sites"}
+    if fault == "half_aligned":
+        assert "aligned_reads_off" in bad
+    if fault == "ref_allele_dropped":
+        assert bad == {"vcf_wrong_genotypes"}
+
+
+@pytest.mark.parametrize("cell", ["fastq.front", "fastq.full"])
+def test_a_sound_run_is_correct(cell):
     with contextlib.redirect_stdout(sys.stderr):
-        r = harness.measure(cell, 5, 1e-3, False, "cpu", time.perf_counter(),
-                            20_000)
+        r = harness.measure(Registry().cell(cell), 5, 1e-3, False, "cpu",
+                            time.perf_counter(), 20_000)
     assert r["correct"] is True
     assert all(c["value"] == 0 for c in r["checks"].values())

@@ -55,8 +55,10 @@ def test_a_new_cell_and_metric_need_no_edit(tmp_path):
                               "layer": "subtract", "moves":
                               "front_reads_per_s",
                               "workloads": ["fastq60.small"]})
-    e2e = {m["name"]: m for m in spec["end_to_end"]}
-    e2e["front_reads_per_s"]["workloads"].append("fastq60.small")
+    spec["end_to_end"].append({"name": "front_reads_per_s",
+                               "unit": "reads/s", "better": "higher",
+                               "bound": 0.25, "source": "host_clock",
+                               "workloads": ["fastq60.small"]})
     (root / "BENCHMARK.json").write_text(json.dumps(spec))
 
     cell = Registry(str(root)).cell("fastq60.small")
