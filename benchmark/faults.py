@@ -15,7 +15,11 @@ plant none; ``control.py`` and ``tests/test_faults.py`` do.
 - ``half_aligned``: the read alignment takes every second kept pair only,
   so half of the back end's input is left out;
 - ``ref_allele_dropped``: interpret's genotyper never calls the reference
-  allele, so a call's genotypes come out wrong.
+  allele, so a call's genotypes come out wrong;
+- ``spilled_run_dropped``: the merge of a spilled count's sorted runs is
+  handed every run but the last, so the keys of the sample's last batches
+  are left out (``SPILL_FAULTS``: only a job whose count spills, with
+  ``spill_tables`` "on" and a budget below its table, can have it).
 
 A cell on one card has no exchange between cards to leave out.
 """
@@ -142,7 +146,19 @@ def ref_allele_dropped():
     return _patch(samread, "baysean_genotyper", make)
 
 
+def spilled_run_dropped():
+    from rufus_tpu_torch.ops import count
+
+    def make(plain):
+        def merge_flat_runs(run_paths, *a, **kw):
+            return plain(run_paths[:-1], *a, **kw)
+        return merge_flat_runs
+
+    return _patch(count, "merge_flat_runs", make)
+
+
 FAULTS = {"state_unchanged": state_unchanged, "half_batch": half_batch,
           "pair_altered": pair_altered, "half_kept": half_kept,
           "rows_altered": rows_altered, "half_aligned": half_aligned,
           "ref_allele_dropped": ref_allele_dropped}
+SPILL_FAULTS = {"spilled_run_dropped": spilled_run_dropped}

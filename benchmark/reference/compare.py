@@ -2,9 +2,13 @@
 plain reference works out from the same reads.
 
 A job's outputs are read from its workdir under the program's file names
-(RUFUS's own: ``<stub>.Jhash.histo``, ``<stub>.table.npz``, the HashList
-and ``Mutations.Mate1/2.fastq``). Each compared number
-counts what differs, so a sound job reads 0 on the exact ones:
+(RUFUS's own: ``<stub>.Jhash.histo``, the sample's table, the HashList
+and ``Mutations.Mate1/2.fastq``). A sample's table is ``<stub>.table.flat``
+where the job spilled its tables to the host (the flat layout, read by
+``read_flat``), and ``<stub>.table.npz`` otherwise; a job that wrote both
+for one sample, or a flat file that is malformed or cut short, reads as an
+empty table. Each compared number counts what differs, so a sound job
+reads 0 on the exact ones:
 
 - ``tables_off``: over the three samples, keys in one table and not the
   other, and shared keys whose counts differ;
@@ -51,6 +55,12 @@ SAMPLES = ("child", "mother", "father")
 ALIGNED_SAM = ".Mutations.fastq.sam"
 FINAL_VCF = ".V2.overlap.hashcount.fastq.bam.FINAL.vcf"
 _COMPLEMENT = str.maketrans("ACGTN", "TGCAN")
+FLAT_MAGIC = b"RTK2"
+FLAT_HEAD = 8 + 16  # the magic, 4 pad bytes, <u8 k and n
+
+
+def _empty_table() -> tuple:
+    return np.empty(0, np.uint64), np.empty(0, np.int64)
 
 
 def stubs(inputs: dict) -> dict:
@@ -176,6 +186,37 @@ def _fastq_records(path: str) -> list:
             for i in range(0, len(lines) - 3, 4)]
 
 
+def read_flat(path: str) -> tuple:
+    """A table in the program's flat layout as (keys uint64, counts int64),
+    read into memory: the 4-byte magic ``RTK2`` and 4 pad bytes, ``<u8`` k
+    and n, then n ``<u8`` keys and n ``<i8`` counts. A wrong magic, a short
+    header or planes shorter than n read as an empty table."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    if len(buf) < FLAT_HEAD or buf[:4] != FLAT_MAGIC:
+        return _empty_table()
+    n = int(np.frombuffer(buf, "<u8", 1, 16)[0])
+    if len(buf) < FLAT_HEAD + 16 * n:
+        return _empty_table()
+    return (np.frombuffer(buf, "<u8", n, FLAT_HEAD).astype(np.uint64),
+            np.frombuffer(buf, "<i8", n, FLAT_HEAD + 8 * n).astype(np.int64))
+
+
+def read_table(wd: str, stub: str) -> tuple:
+    """A sample's table from its workdir: ``<stub>.table.flat`` where the
+    job wrote one, else ``<stub>.table.npz``; both at once, or neither,
+    read as an empty table."""
+    flat = os.path.join(wd, stub + ".table.flat")
+    npz = os.path.join(wd, stub + ".table.npz")
+    if os.path.exists(flat):
+        return _empty_table() if os.path.exists(npz) else read_flat(flat)
+    try:
+        with np.load(npz) as z:
+            return z["keys"].astype(np.uint64), z["counts"]
+    except OSError:
+        return _empty_table()
+
+
 def read_outputs(wd: str, inputs: dict, k: int, min_cov: int) -> dict:
     """A job's outputs from its workdir, in Expected.outputs' form; a file
     that is missing reads as empty."""
@@ -185,12 +226,7 @@ def read_outputs(wd: str, inputs: dict, k: int, min_cov: int) -> dict:
            "aligned": read_sam(p(st["child"] + ALIGNED_SAM)),
            "vcf": read_vcf(p(st["child"] + FINAL_VCF))}
     for s in SAMPLES:
-        try:
-            with np.load(p(st[s] + ".table.npz")) as z:
-                out["tables"][s] = (z["keys"].astype(np.uint64),
-                                    z["counts"])
-        except OSError:
-            out["tables"][s] = (np.empty(0, np.uint64), np.empty(0, np.int64))
+        out["tables"][s] = read_table(wd, st[s])
         try:
             rows = np.loadtxt(p(st[s] + ".Jhash.histo"), dtype=np.int64,
                               ndmin=2)

@@ -56,3 +56,37 @@ def test_a_sound_run_is_correct(cell):
                             time.perf_counter(), 20_000)
     assert r["correct"] is True
     assert all(c["value"] == 0 for c in r["checks"].values())
+
+
+# a spilled copy's trio: tens of sorted runs a sample at 128 reads a batch
+SPILL_BP = {"fastq.front": 40_000, "fastq.full": 20_000}
+
+
+def _spilled_run(spilled, name):
+    with contextlib.redirect_stdout(sys.stderr):
+        return harness.measure(spilled(name, 128), 5, 1e-3, False, "cpu",
+                               time.perf_counter(), SPILL_BP[name])
+
+
+@pytest.mark.parametrize("cell", ["fastq.front", "fastq.full"],
+                         ids=["front", "full"])
+def test_a_spilled_run_is_correct(cell, spilled, stage_records,
+                                  assert_spilled):
+    """A job whose tables spill to ``.table.flat`` reads correct, every
+    check 0, and took the out-of-core path."""
+    r = _spilled_run(spilled, cell)
+    assert r["correct"] is True, r["checks"]
+    assert all(c["value"] == 0 for c in r["checks"].values()), r["checks"]
+    assert len(stage_records) == 2  # the warm-up job and one timed job
+    assert_spilled(stage_records)
+
+
+@pytest.mark.parametrize("fault", sorted(faults.SPILL_FAULTS))
+def test_spill_faults_are_caught(fault, spilled, stage_records,
+                                 assert_spilled):
+    with faults.SPILL_FAULTS[fault]():
+        r = _spilled_run(spilled, "fastq.front")
+    assert r["correct"] is False
+    bad = {n for n, c in r["checks"].items() if c["value"] > c["limit"]}
+    assert "tables_off" in bad, r["checks"]
+    assert_spilled(stage_records)

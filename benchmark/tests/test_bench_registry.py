@@ -45,8 +45,30 @@ def test_a_new_cell_and_metric_need_no_edit(tmp_path):
     (root / "benchmark/traffic/small.json").write_text(json.dumps(tr))
     (root / "benchmark/metrics/hashlist_s.front.py").write_text(
         "def read(ctx):\n    return ctx.stage_mean('hashlist')\n")
+    # an out-of-core configuration: the count spills to .table.flat
+    cfg = json.load(open(root / "benchmark/configs/trio30x_fastq.json"))
+    cfg["rufus"].update(spill_tables="on", hbm_budget_gb=1.5)
+    (root / "benchmark/configs/trio30x_fastq_spill.json").write_text(
+        json.dumps(cfg))
+    (root / "benchmark/metrics/lsm_runs.spill.py").write_text(
+        "def read(ctx):\n"
+        "    runs = [n for r in ctx.jobs\n"
+        "            for n in r['count'].get('lsm_runs', {}).values()]\n"
+        "    return sum(runs) / len(runs) if runs else None\n")
     spec["configs"].append({**spec["configs"][0], "name": "trio60x_fastq",
                             "file": "benchmark/configs/trio60x_fastq.json"})
+    spec["configs"].append({**spec["configs"][0], "name": "trio30x_spill",
+                            "file": "benchmark/configs/"
+                            "trio30x_fastq_spill.json"})
+    spec["workloads"].append({"name": "fastq.spill", "config":
+                              "trio30x_spill", "traffic": "front",
+                              "chips": 1, "why": "a spilled cell"})
+    spec["per_layer"].append({"name": "lsm_runs.spill", "unit": "runs",
+                              "better": "lower",
+                              "source": "program_counter",
+                              "layer": "host feed, count and table",
+                              "moves": "setup_s",
+                              "workloads": ["fastq.spill"]})
     spec["workloads"].append({"name": "fastq60.small", "config":
                               "trio60x_fastq", "traffic": "small",
                               "chips": 1, "why": "a new cell"})
@@ -69,6 +91,14 @@ def test_a_new_cell_and_metric_need_no_edit(tmp_path):
     read = Registry(str(root)).reader("hashlist_s.front")
     ctx = SimpleNamespace(stage_mean=lambda name: {"hashlist": 0.25}[name])
     assert read(ctx) == 0.25
+    spill = Registry(str(root)).cell("fastq.spill")
+    assert spill["config"]["rufus"]["spill_tables"] == "on"
+    assert spill["config"]["rufus"]["hbm_budget_gb"] == 1.5
+    assert [m["name"] for m in spill["per_layer"]] == ["lsm_runs.spill"]
+    read = Registry(str(root)).reader("lsm_runs.spill")
+    runs = {"child": 4, "mother": 5, "father": 6}
+    assert read(SimpleNamespace(jobs=[{"count": {"lsm_runs": runs}}])) == 5
+    assert read(SimpleNamespace(jobs=[{"count": {}}])) is None
     # the original cells are untouched
     assert Registry(str(root)).cell("fastq.front")["traffic"]["genome_bp"] \
         == 4_000_000
