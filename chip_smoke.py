@@ -82,7 +82,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              pulling its share of the contig stage's k-mers. Every rank's
              tables, HashList and pulls must equal the 1-shard run's, the
              ranks' kept pairs its Mutations.Mate1 names, and each rank's
-             own encode_canon, compact_runs and window_hits must launch.
+             own encode_canon, compact_runs, merge_runs and window_hits
+             must launch.
              Prints each rank's launches and seconds;
    regenotype - a fresh RufusPipeline on the slice's workdir re-genotypes
              its contigs against the parents' saved tables (.table.npz):
@@ -90,9 +91,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              ##fileDate, and its FINAL.vcf.gz must inflate to it;
    memory  - the memory model: first the device bytes a key of a fold
              (fold_bytes line: a batch folded into an empty table, then a
-             slice of the next folded into that table, by
-             torch.cuda.max_memory_allocated), then, with the FASTQ run's
-             ModelDist outputs copied in and the launch counts set to 0,
+             slice of the next merged into that table, and merge_sum of
+             the same two runs, by torch.cuda.max_memory_allocated), then,
+             with the FASTQ run's ModelDist outputs copied in and the
+             launch counts set to 0,
              (a) the trio through the filter with spill_tables "on" and a
              budget 5% above the least that holds one batch, so that every
              sample spills LSM runs that merge-sum on the card: each
@@ -128,16 +130,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
              device peaks and the host's peak RSS;
 6. kernels - each CUDA kernel against its plain PyTorch version on the card
              at the main path's shapes, exact equality: encode_canon on a
-             65536-read batch; compact_runs in both of its main-path modes,
-             raw on one real 96 Mi-key pending buffer and counted on the
-             merge of that buffer's table with the next buffer's unique
-             keys; window_hits on a mate-1 batch against the run's
-             HashList and against a HashList of 65,536 keys (the run's,
-             4,096 canonical windows of the batch, random 50-bit keys from
-             --seed: most windows miss, and the keys no longer fit shared
-             memory), with its prebuilt hashlist_index (index_ms times the
-             build, once per HashList). Times each (CUDA
-             events, warmed up), the plain version and, for raw
+             65536-read batch; compact_runs raw on the subject's last full
+             batch of raw keys, as its fold sorts it; merge_runs of that
+             batch's unique run into the table of every other batch of the
+             subject (the count's last merge; bound 16 bytes a key of both
+             runs and the union); compact_runs counted on the stable sort
+             of the same two runs (merge_sum's route: counted parts and
+             the flat runs' merge); window_hits on a mate-1 batch against
+             the run's HashList and against a HashList of 65,536 keys
+             (the run's, 4,096 canonical windows of the batch, random
+             50-bit keys from --seed: most windows miss, and the keys no
+             longer fit shared memory), with its prebuilt hashlist_index
+             (index_ms times the build, once per HashList). Times each
+             (CUDA events, warmed up), the plain version and, for raw
              compact_runs, torch.unique_consecutive as the library
              yardstick. bound_ms is the bytes each must move (inputs read
              once, outputs written once) over 3.35 TB/s, the H100 SXM
@@ -147,9 +152,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              a share above 1.05 fails the run (a kernel faster than the
              memory allows has skipped work). device_us gives, beside ms,
              each of a call's kernels' device time from torch.profiler, for
-             compact_runs, window_hits and partition: compact_runs reads
-             the unique count on the host in the middle of a call, so its
-             ms includes the host's gaps (library_device_us is the same for
+             compact_runs, merge_runs, window_hits and partition:
+             compact_runs and merge_runs read the output's size on the
+             host in the middle of a call, so their ms includes the
+             host's gaps (library_device_us is the same for
              torch.unique_consecutive). sw_batch (the fused DP and
              traceback, cuda_sw.sw_ragged) runs at the old read shape
              (256 pairs of n 160, m 288), at the contig stage's largest
@@ -165,20 +171,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
              times the contig stage's genotype pulls (every k-mer of its
              two tabs against the three sample tables on the card, one
              torch.searchsorted a table) beside the host numpy query they
-             must equal. The fold's two sorts
-             are timed too: torch.sort of the pending buffer and the stable
-             sort of a merge. A slice_busy line then reckons the card's busy
-             time in the count and filter stages, launches x ms of the
-             kernels and sorts, and in align_reads and contig_align, every
+             must equal. The fold's sort is timed too: torch.sort of the
+             batch. A slice_busy line then reckons the card's busy time in
+             the count and filter stages, launches x ms of the kernels and
+             the sort, and in align_reads and contig_align, every
              sw launch the trace recorded replayed and timed with the copy
              of its results, beside each stage's wall time.
 7. radix   - the radix tool's path (python -m rufus_tpu_torch.tools.radixbench
              at its default n, 25,993,216 random k 25 keys, with the
              partition and run-metadata counts set to 0 first), which prints
              its own JSON line; then the
-             tool's timings on the subject's first pending buffer (the
-             fold's real input, 106,954,752 keys with sentinels: its global
-             torch.sort time is the fold's sort). The partition kernel is
+             tool's timings on a buffer of the subject's first 12
+             batches' raw keys, 106,954,752 with sentinels (the JAX
+             package's flush size: its global torch.sort time is that
+             package's fold sort). The partition kernel is
              held to partition_torch exactly at both shapes, its output to
              the sorted input, and timed beside the plain version. No single
              PyTorch call gives block-sorted runs in bucket order, so it
@@ -352,10 +358,12 @@ def phase_data(out_dir, genome_mbp, seed):
 
 def _kernels():
     """The kernels of the path through the filter."""
-    from rufus_tpu_torch.ops import cuda_count, cuda_filter, cuda_fold
+    from rufus_tpu_torch.ops import (cuda_count, cuda_filter, cuda_fold,
+                                     cuda_merge)
 
     return {"encode_canon": cuda_count.encode_canon,
             "compact_runs": cuda_fold.compact_runs,
+            "merge_runs": cuda_merge.merge_runs,
             "window_hits": cuda_filter.window_hits}
 
 
@@ -575,45 +583,20 @@ def phase_regenotype(data, workdir):
 
 
 
-def fold_bytes(data) -> dict:
-    """Device bytes a key costs at the peak of each step of a fold, from
-    torch.cuda.max_memory_allocated on the subject's first two count
-    batches: a pending batch folded into an empty table (its encode
-    output, the sort and the raw compaction), then a 1 Mi-key slice of the
-    second batch folded into that table (the merge, the table's own bytes
-    included). The budget's constants (ops/table.py) must not be below
-    them."""
-    from rufus_tpu_torch.io import fastq
-    from rufus_tpu_torch.ops import codec, table
+def fold_bytes() -> dict:
+    """Device bytes a key costs at the peak of each step of a fold
+    (tools/sortbench.py's fold_bytes at a count batch's raw keys): a batch
+    folded into an empty table, then a slice of another folded into that
+    table by merge_runs, the table's own bytes included, and merge_sum of
+    the same two runs (the counted parts' and the flat runs' merge). The
+    budget's constants (ops/table.py) must not be below them."""
+    from rufus_tpu_torch.ops import table
+    from rufus_tpu_torch.tools import sortbench
 
-    dev = torch.device("cuda")
-    batches = fastq.fastq_batches(data["child"][0], BATCH, READ_PAD)
-    r1 = torch.from_numpy(next(batches).seq).to(dev)
-    r2 = torch.from_numpy(next(batches).seq).to(dev)
-    small = table.count_step(r2, K)[: 1 << 20].clone()
-    u_small = int((torch.unique(small) != codec.SENTINEL).sum())
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    t = table.DeviceKmerTable(K, dev)
-    t.fold_batch(table.count_step(r1, K))
-    n_pending = BATCH * (READ_PAD - K + 1)
-    t.flush()
-    torch.cuda.synchronize()
-    pending = (torch.cuda.max_memory_allocated(dev) - base) / n_pending
-    n_table = t.keys.numel()
-    torch.cuda.reset_peak_memory_stats(dev)
-    t.fold_batch(small)
-    del small
-    t.flush()
-    torch.cuda.synchronize()
-    merge = ((torch.cuda.max_memory_allocated(dev) - base)
-             / (n_table + u_small))
-    t.release()
-    info = {"phase": "fold_bytes", "pending_keys": n_pending,
-            "table_keys": n_table, "merge_pending_unique": u_small,
-            "pending_bytes_per_key": pending, "merge_bytes_per_key": merge,
+    info = {"phase": "fold_bytes", **sortbench.fold_bytes(
+        BATCH * (READ_PAD - K + 1), 0, torch.device("cuda")),
             "constants": {"PENDING_BYTES": table.PENDING_BYTES,
+                          "RUN_MERGE_BYTES": table.RUN_MERGE_BYTES,
                           "MERGE_BYTES": table.MERGE_BYTES}}
     emit(info)
     return info
@@ -634,13 +617,11 @@ def phase_memory(data, work, fastq_wd, fastq_info):
     # the count's own bytes
     gc.collect()
     base = torch.cuda.memory_allocated()
-    consts = fold_bytes(data)
+    consts = fold_bytes()
     stub = {s: os.path.basename(data[s][0]) + ".generator"
             for s in ("child", "mother", "father")}
     # the least budget whose pending cap holds one batch, and 5% more
-    per_key = max(table.PENDING_BYTES + table.TABLE_BYTES,
-                  2 * table.MERGE_BYTES)
-    budget = int(1.05 * per_key * BATCH * (READ_PAD - K + 1))
+    budget = int(1.05 * table.CAP_BYTES * BATCH * (READ_PAD - K + 1))
     read = lambda p: open(p, "rb").read()  # noqa: E731
 
     def same_tables(wd, what):
@@ -752,8 +733,9 @@ def phase_memory(data, work, fastq_wd, fastq_info):
             if os.path.exists(f):
                 os.remove(f)
     info = {"phase": "memory", "budget_bytes": budget,
-            "fold_bytes": {k: consts[k] for k in ("pending_bytes_per_key",
-                                                  "merge_bytes_per_key")},
+            "fold_bytes": {k: consts[k] for k in (
+                "pending_bytes_per_key", "run_merge_bytes_per_key",
+                "merge_sum_bytes_per_key")},
             "lsm_runs": lsm["lsm_runs"],
             "count_device_peak_bytes": lsm["count_device_peak_bytes"],
             "count_wall_s": lsm["count_wall_s"], "merge_s": lsm["merge_s"],
@@ -767,7 +749,8 @@ def phase_memory(data, work, fastq_wd, fastq_info):
             "host_peak_rss_bytes": peak_rss()}
     emit(info)
     if (consts["pending_bytes_per_key"] > table.PENDING_BYTES
-            or consts["merge_bytes_per_key"] > table.MERGE_BYTES):
+            or consts["run_merge_bytes_per_key"] > table.RUN_MERGE_BYTES
+            or consts["merge_sum_bytes_per_key"] > table.MERGE_BYTES):
         raise AssertionError("a fold takes more device bytes a key than the "
                              "budget's constants in ops/table.py reckon")
     if after != before:
@@ -1359,8 +1342,8 @@ def phase_bam(data, work, fastq_wd, fastq_info, seed):
 
 
 def pending_buffers(data):
-    """The subject's pending buffers as the count stage fills them, unsorted:
-    the raw window keys of consecutive batches, at least PENDING each."""
+    """Buffers of the subject's raw window keys, unsorted: consecutive
+    batches, at least PENDING keys each (the JAX package's flush size)."""
     from rufus_tpu_torch.io import fastq
     from rufus_tpu_torch.ops import cuda_count
 
@@ -1374,6 +1357,29 @@ def pending_buffers(data):
                 buf = torch.cat(parts)
                 parts, n = [], 0
                 yield buf
+
+
+def last_fold(data):
+    """The subject's last full fold as the count stage makes it from its
+    FASTQ mates: a DeviceKmerTable of every other batch (no floor) and the
+    raw keys of the last full batch, not yet folded."""
+    from rufus_tpu_torch.io import fastq
+    from rufus_tpu_torch.ops import cuda_count, table
+
+    t = table.DeviceKmerTable(K, torch.device("cuda"))
+    last = None
+    for mate in data["child"]:
+        for bb in fastq.fastq_batches(mate, BATCH, READ_PAD):
+            keys = cuda_count.encode_canon(
+                torch.from_numpy(bb.seq).to("cuda"), K).reshape(-1)
+            if bb.seq.shape[0] < BATCH:
+                t.fold_batch(keys)
+                continue
+            if last is not None:
+                t.fold_batch(last)
+            last = keys
+    t.flush()
+    return t, last
 
 
 def large_hashlist(table, reads, seed):
@@ -1555,7 +1561,7 @@ def phase_kernels(data, hl_path, launches, seed, contig_pair,
                   read_shapes):
     from rufus_tpu_torch.convert import hashlist_keys_to_int64
     from rufus_tpu_torch.io import fastq, hashlist as hio
-    from rufus_tpu_torch.ops import cuda_count, cuda_fold
+    from rufus_tpu_torch.ops import cuda_count, cuda_fold, cuda_merge
 
     dev = torch.device("cuda")
     rows = []
@@ -1579,12 +1585,12 @@ def phase_kernels(data, hl_path, launches, seed, contig_pair,
         "library_ms": None,
         "shape": [B, L], "bytes": B * L + 8 * B * W})
 
-    # compact_runs, raw: one real pending buffer (the subject's first fold
-    # input); counted: what the second fold merges, the first buffer's
-    # table with the next buffer's unique keys
-    buffers = pending_buffers(data)
-    raw = next(buffers)
-    pending_sort_ms = time_ms(lambda: torch.sort(raw), 3)
+    # compact_runs, raw: the subject's last full batch, as its fold sorts
+    # and compacts it; merge_runs: that batch's unique run into the table
+    # of every earlier batch, the count's last merge; compact_runs,
+    # counted: merge_sum's route on the same two runs
+    t, raw = last_fold(data)
+    pending_sort_ms = time_ms(lambda: torch.sort(raw), 10)
     s = torch.sort(raw).values
     del raw
     gk, gs = cuda_fold.compact_runs(s)
@@ -1607,15 +1613,28 @@ def phase_kernels(data, hl_path, launches, seed, contig_pair,
         "library_device_us": device_us(
             lambda: torch.unique_consecutive(s, return_counts=True))}
     del s, wk, ws
-    s2 = torch.sort(next(buffers)).values
-    del buffers
-    k2, c2 = cuda_fold.compact_runs(s2)
-    del s2
-    both = torch.cat([gk, k2])
-    merge_sort_ms = time_ms(lambda: torch.sort(both, stable=True), 3)
+    runs = (t.keys, t.counts, gk, gs)
+    uk, uc = cuda_merge.merge_runs(*runs)
+    wk, ws = cuda_merge.merge_runs_torch(*runs)
+    nbytes = 16 * (t.n_keys + gk.numel() + uk.numel())
+    merge = {
+        "name": "merge_runs", "route": "cuda",
+        "source": "rufus_tpu_torch/csrc/merge.cu",
+        "replaces": "none (rufus_tpu/parallel/sharded.py:684-686 sorts)",
+        "launches": launches["merge_runs"],
+        "max_abs_err": max(max_abs_err(uk, wk), max_abs_err(uc, ws)),
+        "ms": time_ms(lambda: cuda_merge.merge_runs(*runs), 10),
+        "plain_ms": time_ms(lambda: cuda_merge.merge_runs_torch(*runs), 3),
+        "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+        "library_ms": None, "shape": [t.n_keys, gk.numel()],
+        "n_union": uk.numel(), "bytes": nbytes,
+        "device_us": device_us(lambda: cuda_merge.merge_runs(*runs))}
+    del runs, uk, uc, wk, ws
+    both = torch.cat([t.keys, gk])
     mk, order = torch.sort(both, stable=True)
-    mc = torch.cat([gs, c2])[order]
-    del gk, gs, k2, c2, order, both
+    mc = torch.cat([t.counts, gs])[order]
+    t.release()
+    del gk, gs, order, both
     gk, gs = cuda_fold.compact_runs(mk, mc)
     wk, ws = cuda_fold.compact_runs_torch(mk, mc)
     cerr = max(max_abs_err(gk, wk), max_abs_err(gs, ws))
@@ -1626,10 +1645,10 @@ def phase_kernels(data, hl_path, launches, seed, contig_pair,
         "plain_ms": time_ms(lambda: cuda_fold.compact_runs_torch(mk, mc), 3),
         "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
         "library_ms": None, "shape": [mk.numel()], "n_unique": gk.numel(),
-        "bytes": nbytes, "merge_sort_ms": merge_sort_ms,
+        "bytes": nbytes,
         "device_us": device_us(lambda: cuda_fold.compact_runs(mk, mc))}
     row["max_abs_err"] = max(err, cerr)
-    rows.append(row)
+    rows += [row, merge]
     del mk, mc, gk, gs, wk, ws
 
     # window_hits: the run's HashList against a subject mate-1 batch, then
@@ -1690,21 +1709,24 @@ def sw_busy(launches) -> dict:
 
 def phase_slice_busy(sl, rows):
     """The card's busy time in the count and filter stages, reckoned as
-    launches x ms of the kernels and of the fold's sorts as phase_kernels
-    timed them (every fold sorts one pending buffer and compacts it raw;
-    every later fold also merge-sorts and compacts with counts), and in
-    the two alignment stages as their DP calls replayed (sw_busy), beside
-    each stage's wall time."""
+    launches x ms of the kernels and of the fold's sort as phase_kernels
+    timed them (every fold sorts one batch and compacts it raw, and merges
+    its unique run into the table unless the table is empty; a counted
+    compaction, merge_sum's, is on no route of one shard), and in the two
+    alignment stages as their DP calls replayed (sw_busy), beside each
+    stage's wall time."""
     by = {r["name"]: r for r in rows}
     enc, comp, win = by["encode_canon"], by["compact_runs"], by["window_hits"]
+    merge = by["merge_runs"]
     folds = sl["folds"]
-    merges = comp["launches"] - folds
+    counted = comp["launches"] - folds
     count_ms = (enc["launches"] * enc["ms"]
                 + folds * (comp["pending_sort_ms"] + comp["ms"])
-                + merges * (comp["counted"]["merge_sort_ms"]
-                            + comp["counted"]["ms"]))
+                + merge["launches"] * merge["ms"]
+                + counted * comp["counted"]["ms"])
     filter_ms = win["launches"] * win["ms"]
-    emit({"phase": "slice_busy", "folds": folds, "merges": merges,
+    emit({"phase": "slice_busy", "folds": folds,
+          "merges": merge["launches"], "counted_compactions": counted,
           "count": {"busy_ms": count_ms,
                     "wall_s": sl["stage_wall_s"]["count"]},
           "filter": {"busy_ms": filter_ms,

@@ -7,8 +7,16 @@ The single-device counterpart of ``rufus_tpu/parallel/sharded.py``'s
 (``parallel/sharded.py``). The device table holds exactly its sorted unique
 keys and counts: each fold sizes the new table from the compaction
 kernel's unique count, so there is no capacity, no growth and no retry.
-The contents do not depend on that choice, so the outputs equal the JAX
-package's.
+
+The JAX package buffers 96 M raw keys before a fold, to amortise the sort
+of table || pending that merges them. Here the sorted unique run of the
+folded keys merges into the table in one linear pass (``merge_runs``), so
+a fold waits only until the pending keys reach a quarter of the table:
+the pending sort then stays under the merge's bytes, and a merge's pass
+over the table is paid for by a quarter of its keys in new keys (a file's
+last, short batch aside, which folds alone rather than swell the next
+batch's sort). The contents do not depend on the fold cadence, so the
+outputs equal the JAX package's.
 
 Under a device memory budget (the JAX package's ``max_capacity`` and
 ``overflow_spill``) the table reckons the bytes each fold allocates, with
@@ -24,18 +32,29 @@ import torch
 
 from . import codec, count
 from .cuda_count import encode_canon
+from .cuda_merge import merge_runs
 
 # Device bytes a key costs at the peak of a fold, from
 # torch.cuda.max_memory_allocated around folds on the H100 (chip_smoke.py's
-# memory phase; PERF.md): TABLE_BYTES a committed key (key and count);
+# memory phase, tools/sortbench.py's fold_bytes; PERF.md), the caching
+# allocator's block rounding included: TABLE_BYTES a committed key (key
+# and count);
 # PENDING_BYTES a pending raw key while its buffer is sorted and compacted
 # (the buffered batches, their concatenation, torch.sort's values, indices
-# and scratch, compact_runs' 12-byte stage); MERGE_BYTES a key of the table
-# plus the pending buffer's unique keys while the two merge (the
-# concatenated keys and counts, the stable sort's values, indices and
-# scratch, the gathered counts and compact_runs' output).
-TABLE_BYTES, PENDING_BYTES, MERGE_BYTES = 16, 52, 64
-# Raw keys the pending buffer takes before a fold, without a budget.
+# and scratch, compact_runs' 12-byte stage); RUN_MERGE_BYTES a key of the
+# table plus the folded keys' unique run while merge_runs merges the two
+# (both runs and the union); MERGE_BYTES a key of ``count.merge_sum``'s
+# parts (the concatenated keys and counts, the stable sort's values,
+# indices and scratch, the gathered counts and compact_runs' output), which
+# merges unsorted parts: counted pending parts here, the flat runs' chunks
+# in ``count.merge_flat_runs``.
+TABLE_BYTES, PENDING_BYTES, RUN_MERGE_BYTES, MERGE_BYTES = 16, 52, 34, 64
+# Bytes the budget reserves a key of the pending cap: one pending buffer
+# must fit beside a table of its own size, and two of its unique runs must
+# merge within the budget.
+CAP_BYTES = max(PENDING_BYTES + TABLE_BYTES, 2 * RUN_MERGE_BYTES)
+# Raw keys the pending buffer takes at most before a fold, without a
+# budget.
 PENDING_KEYS = 96 << 20
 
 
@@ -49,9 +68,12 @@ def count_step(reads: torch.Tensor, k: int) -> torch.Tensor:
 class DeviceKmerTable:
     """Sorted unique int64 keys and int64 counts on one device.
 
-    Batches are buffered until `pending_budget` keys are pending, then
-    folded at once: sort + compact the pending keys, merge the result with
-    the table, compact again.
+    Batches are buffered until the pending keys reach the least of
+    `pending_budget` and a quarter of the table (never fewer than the
+    batch at hand), then folded at once: sort + compact the pending keys,
+    and merge the sorted unique result into the table (``merge_runs``).
+    `folds` counts the folds and `fold_keys_max` the most pending keys one
+    took.
 
     With `budget` (bytes) and `spill` (a callback that writes the committed
     table out and calls `reset`), a fold never allocates more than the
@@ -69,14 +91,11 @@ class DeviceKmerTable:
         self._pending: list = []
         self._pending_els = 0
         self.pending_budget = pending_budget
-        self.folds = 0
+        self.folds = self.fold_keys_max = 0
         self.budget, self.spill, self.pending_cap = budget, spill, None
         self.spills = 0
         if spill is not None:
-            # one pending buffer must fit beside a table of its own size,
-            # and two of its unique sets must merge within the budget
-            self.pending_cap = budget // max(PENDING_BYTES + TABLE_BYTES,
-                                             2 * MERGE_BYTES)
+            self.pending_cap = budget // CAP_BYTES
             self.pending_budget = min(pending_budget, self.pending_cap)
 
     @property
@@ -84,9 +103,15 @@ class DeviceKmerTable:
         """Committed unique keys."""
         return self.keys.numel()
 
+    def _fold_at(self) -> int:
+        """Pending keys that start a fold."""
+        return min(self.pending_budget, self.keys.numel() // 4)
+
     def fold_batch(self, batch_keys: torch.Tensor, batch_counts=None):
         """Queue raw count-1 keys (batch_counts=None) or (keys, counts);
-        fold when the pending buffer reaches its budget."""
+        fold when the pending keys reach the least of `pending_budget` and
+        a quarter of the table. A batch that reaches it alone folds alone:
+        what is pending (a file's last, short batch) folds first."""
         n = batch_keys.numel()
         if self.pending_cap is not None:
             if n > self.pending_cap:
@@ -96,9 +121,12 @@ class DeviceKmerTable:
                     "pending keys); lower batch_size or raise hbm_budget_gb")
             if self._pending_els + n > self.pending_cap:
                 self.flush()
+        if self._pending and n >= self._fold_at():
+            self.flush()
         self._pending.append((batch_keys.reshape(-1), batch_counts))
         self._pending_els += n
-        if self._pending_els >= self.pending_budget:
+        del batch_keys, batch_counts  # the fold frees them after its sort
+        if self._pending_els >= self._fold_at():
             self.flush()
 
     def _over_budget(self, nbytes: int) -> bool:
@@ -125,11 +153,12 @@ class DeviceKmerTable:
         if self._over_budget(TABLE_BYTES * self.keys.numel()
                              + PENDING_BYTES * self._pending_els):
             self._spill()
+        self.fold_keys_max = max(self.fold_keys_max, self._pending_els)
         pending, self._pending, self._pending_els = self._pending, [], 0
         parts_k = [k for k, _ in pending]
         if all(c is None for _, c in pending):
             del pending
-            keys = torch.cat(parts_k)
+            keys = parts_k[0] if len(parts_k) == 1 else torch.cat(parts_k)
             del parts_k
             pk, pc = count.count_batch(keys)
             del keys
@@ -138,13 +167,14 @@ class DeviceKmerTable:
                        else c.reshape(-1).to(torch.int64) for k, c in pending]
             del pending
             pk, pc = count.merge_sum(parts_k, parts_c)
-        if self._over_budget(MERGE_BYTES * (self.keys.numel() + pk.numel())):
+        if self._over_budget(RUN_MERGE_BYTES
+                             * (self.keys.numel() + pk.numel())):
             self._spill()
         if self.keys.numel():
-            parts_k, parts_c = [self.keys, pk], [self.counts, pc]
+            table_k, table_c = self.keys, self.counts
             self.keys = self.counts = None
-            del pk, pc
-            pk, pc = count.merge_sum(parts_k, parts_c)
+            pk, pc = merge_runs(table_k, table_c, pk, pc)
+            del table_k, table_c
         self.keys, self.counts = pk, pc
         self.folds += 1
 

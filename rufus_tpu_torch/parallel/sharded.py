@@ -63,8 +63,9 @@ from ..ops import codec, count
 from ..ops import query as _query
 from ..ops.cuda_count import encode_canon
 from ..ops.cuda_filter import hashlist_index, window_hits
-from ..ops.table import (PENDING_KEYS, DeviceKmerTable, count_step,
-                         make_splitters, splitters_of_sample, subtract_step)
+from ..ops.table import (PENDING_BYTES, PENDING_KEYS, TABLE_BYTES,
+                         DeviceKmerTable, count_step, make_splitters,
+                         splitters_of_sample, subtract_step)
 
 SPLIT_BATCHES = 16  # batches whose keys sample the splitters, at most
 SPLIT_SAMPLE = 1 << 16  # keys the splitters are the quantiles of, at most
@@ -463,19 +464,25 @@ class ShardedKmerTable:
     gives it.
 
     Range: batches (one raw key tensor a shard, ``local_count_step``) are
-    buffered a shard until a shard's buffer reaches `pending_budget` keys,
-    then flushed: partials, exchange, owners' folds. `splitters` is the
-    run's partition; None freezes it at the first flush, or after
-    SPLIT_BATCHES batches, from those batches' keys. Hash: batches arrive
-    routed (``sharded_count_step``'s keys and counts) and each shard folds
-    its own.
+    buffered a shard until a shard's buffer reaches the least of
+    `pending_budget` and a quarter of the smallest shard's table, the rule
+    of DeviceKmerTable, then flushed: partials, exchange, owners' folds.
+    `splitters` is the run's partition; None freezes it at the first
+    flush, or after SPLIT_BATCHES batches, from those batches' keys, and
+    until then the buffers wait for `pending_budget` alone, so that the
+    splitters sample more than one batch. Hash: batches arrive routed
+    (``sharded_count_step``'s keys and counts) and each shard folds its
+    own. `folds` counts the shards' folds, `fold_keys_max` the most keys
+    a shard's buffer (range) or a shard's fold (hash) took.
 
     With `budget` (bytes) and `spill` (one process only), each shard's
-    DeviceKmerTable guards budget // n; when any shard's fold would pass
-    its share, `spill(self)` writes the whole table as one sorted run and
-    calls `reset` (a run must hold every shard's range, so the partition
-    must be by range). `stats` counts flushes, the (key, count) pairs this
-    process's shards sent to other shards, and spills.
+    DeviceKmerTable guards budget // n, and a range flush guards each
+    shard's sort of its buffer beside its table the same way; when any
+    shard's fold would pass its share, `spill(self)` writes the whole
+    table as one sorted run and calls `reset` (a run must hold every
+    shard's range, so the partition must be by range). `stats` counts
+    flushes, the (key, count) pairs this process's shards sent to other
+    shards, and spills.
 
     On a process mesh every rank builds the table and folds every batch
     (its slice may be empty). The decisions that lead to a collective, a
@@ -511,9 +518,7 @@ class ShardedKmerTable:
                              f"{mesh.n} shards")
         self.spill = spill
         share = None if budget is None else budget // mesh.n
-        # a hash shard buffers its routed batches itself
-        shard_pending = pending_budget if partition == "hash" else PENDING_KEYS
-        self.shards = [DeviceKmerTable(k, d, shard_pending, budget=share,
+        self.shards = [DeviceKmerTable(k, d, pending_budget, budget=share,
                                        spill=None if spill is None
                                        else self._spill_all)
                        for d in mesh.devices]
@@ -522,11 +527,20 @@ class ShardedKmerTable:
                                else min(pending_budget, self.pending_cap))
         self._pending: list = [[] for _ in mesh.devices]
         self._pending_els = [0] * mesh.local
+        self._flush_keys_max = 0
         self.stats = {"flushes": 0, "exchanged_keys": 0, "spills": 0}
 
     @property
     def folds(self) -> int:
         return sum(s.folds for s in self.shards)
+
+    @property
+    def fold_keys_max(self) -> int:
+        """The most keys one fold took: a shard's buffer at a range flush,
+        or a hash shard's own fold."""
+        if self.partition == "hash":
+            return max(s.fold_keys_max for s in self.shards)
+        return self._flush_keys_max
 
     @property
     def n_keys(self) -> int:
@@ -547,8 +561,10 @@ class ShardedKmerTable:
         raw count-1 keys (the range partition's ``local_count_step``), or
         the keys and counts that ``sharded_count_step`` routed to each
         shard (the hash partition; raw keys, counts None, on one shard).
-        Range: flushes when a shard's buffer reaches the budget (first,
-        under a device budget, when the batch would pass a shard's cap)."""
+        Range: flushes when a shard's buffer reaches the least of the
+        budget and a quarter of the smallest shard's table; first, when
+        the batch would pass a shard's cap under a device budget, or
+        reaches that alone, what is buffered."""
         if len(parts) != self.mesh.local:
             raise ValueError(f"{len(parts)} parts for {self.mesh.local} "
                              "shards")
@@ -560,8 +576,9 @@ class ShardedKmerTable:
         if counts is not None:
             raise ValueError("a range-partitioned table folds raw keys")
         sizes = [p.numel() for p in parts]
-        largest, pending = all_max(self.mesh, [
-            max(sizes), max(e + s for e, s in zip(self._pending_els, sizes))])
+        largest, pending, least = all_max(self.mesh, [
+            max(sizes), max(e + s for e, s in zip(self._pending_els, sizes)),
+            -min(s.n_keys for s in self.shards)])
         if self.pending_cap is not None:
             if largest > self.pending_cap:
                 raise RuntimeError(
@@ -571,14 +588,26 @@ class ShardedKmerTable:
             if pending > self.pending_cap:
                 self.flush()
                 pending = largest
+        # every rank buffers every batch, so all agree whether one is here
+        if any(self._pending) and largest >= self._fold_at(-least):
+            self.flush()
+            pending = largest
         for i, p in enumerate(parts):
             self._pending[i].append(p.reshape(-1))
             self._pending_els[i] += sizes[i]
         if (self.splitters is None
                 and len(self._pending[0]) >= SPLIT_BATCHES):
             self._freeze()
-        if pending >= self.pending_budget:
+        if pending >= self._fold_at(-least):
             self.flush()
+
+    def _fold_at(self, least: int) -> int:
+        """Keys in a shard's buffer that start a range flush, `least` the
+        smallest shard's table: `pending_budget` until the splitters are
+        frozen."""
+        if self.splitters is None:
+            return self.pending_budget
+        return min(self.pending_budget, least // 4)
 
     def _freeze(self):
         """Splitters from the buffered batches, the first SPLIT_BATCHES
@@ -606,7 +635,16 @@ class ShardedKmerTable:
         # every rank buffers every batch, so all agree whether one is here
         if not any(self._pending):
             return
+        # a spill is on one process only, so this needs no collective
+        if any(s._over_budget(TABLE_BYTES * s.n_keys + PENDING_BYTES * e)
+               for s, e in zip(self.shards, self._pending_els)):
+            pending, els = self._pending, self._pending_els
+            self._pending = [[] for _ in self.mesh.devices]
+            self._pending_els = [0] * self.mesh.local
+            self._spill_all()
+            self._pending, self._pending_els = pending, els
         self.stats["flushes"] += 1
+        self._flush_keys_max = max(self._flush_keys_max, *self._pending_els)
         self.fold_received(*exchange(self.mesh, *self.partials(),
                                      self.stats))
 
@@ -620,16 +658,12 @@ class ShardedKmerTable:
         if self.splitters is None:
             self._freeze()
         mesh = self.mesh
-        # Under a budget a partial's sort needs no guard of its own: it
-        # sorts at most pending_cap raw keys beside a table that the
-        # owners' merge guard keeps under 2 x pending_cap keys, 84 bytes a
-        # pending_cap key in all, within the shard's 128.
         pending = self._pending
         self._pending = [[] for _ in range(mesh.local)]
         self._pending_els = [0] * mesh.local
         partials, bounds = [], []
         for parts, d in zip(pending, mesh.devices):
-            keys = torch.cat(parts)
+            keys = parts[0] if len(parts) == 1 else torch.cat(parts)
             parts.clear()
             if keys.numel():
                 pk, pc = count.count_batch(keys)

@@ -180,6 +180,7 @@ class RufusPipeline:
         self._shard_stats: dict = {}  # stub -> its sharded count's stats
         self._reads: dict = {}  # stub -> reads counted
         self._folds: dict = {}  # stub -> folds of its count
+        self._fold_keys_max: dict = {}  # stub -> most keys one fold took
         self._runs: dict = {}  # stub -> LSM runs its count spilled
         self._merge_s: dict = {}  # stub -> seconds merging those runs
         self._spill = None  # tables to flat memmaps: decided once
@@ -532,10 +533,11 @@ class RufusPipeline:
         return table
 
     def _note_folds(self, stub: str, dev):
-        """A count's folds, and a sharded count's flushes, (key, count)
-        pairs exchanged, spills and shard balance (its shards' unique
-        keys), for the trace."""
+        """A count's folds and the most keys one took, and a sharded
+        count's flushes, (key, count) pairs exchanged, spills and shard
+        balance (its shards' unique keys), for the trace."""
         self._folds[stub] = dev.folds
+        self._fold_keys_max[stub] = dev.fold_keys_max
         if isinstance(dev, sharded.ShardedKmerTable):
             sizes = dev.shard_keys()
             self._shard_stats[stub] = {**dev.stats,
@@ -555,7 +557,7 @@ class RufusPipeline:
         cfg = self.cfg
         passes = cfg.count_passes
         part_paths = []
-        folds = 0
+        folds = fold_keys_max = 0
         span = self.trace.span
         for p in range(passes):
             stream = self._prefetch(self._batch_stream(
@@ -586,6 +588,7 @@ class RufusPipeline:
             pp = flat_path + f".pass{p}"
             dev.to_flat(pp)
             folds += dev.folds
+            fold_keys_max = max(fold_keys_max, dev.fold_keys_max)
             dev.release()
             part_paths.append(pp)
             self._log(f"count[{stub}] pass {p}: "
@@ -594,6 +597,7 @@ class RufusPipeline:
         for pp in part_paths:
             os.remove(pp)
         self._folds[stub] = folds
+        self._fold_keys_max[stub] = fold_keys_max
         self._spill = True  # downstream: the streamed subtract, host pulls
         gc.collect()
         malloc_trim()
@@ -630,6 +634,9 @@ class RufusPipeline:
             rec["reads"] = {stub: self._reads[stub] for _, stub, _ in jobs
                             if stub in self._reads}
             rec["folds"] = sum(self._folds.get(stub, 0) for _, stub, _ in jobs)
+            rec["fold_keys_max"] = {stub: self._fold_keys_max[stub]
+                                    for _, stub, _ in jobs
+                                    if stub in self._fold_keys_max}
             rec["flat"] = bool(self._spill)
             rec["lsm_runs"] = {stub: self._runs[stub] for _, stub, _ in jobs
                                if stub in self._runs}

@@ -16,8 +16,9 @@ package's authors) and ``detail``. Each stage is measured on the port's
 own path:
 
 * count: ``encode_canon`` of each batch into a ``DeviceKmerTable``, which
-  folds its pending buffer (``torch.sort`` + ``compact_runs``) as the
-  pipeline's count does; reads already on the card;
+  folds its pending keys (``torch.sort`` + ``compact_runs``, then
+  ``merge_runs`` into the table) as the pipeline's count does; reads
+  already on the card;
 * filter: ``window_hits`` of each batch against the HashList (with its
   ``hashlist_index``, built once), one copy of the hit counts to the host;
   the kernel is exact, so there is no host verify;
@@ -30,9 +31,9 @@ own path:
 
 Times are the best of 3 epochs (host clock around a synchronised epoch,
 after a warm-up epoch). The ``roofline`` block is in the port's terms:
-``torch.sort`` of the flush-size int64 buffer (B x (L-k+1) x iters keys),
-the stable sort of a merge (the table's keys with one batch's unique keys,
-as a later fold merges), ``compact_runs`` of the sorted flush buffer, each
+``torch.sort`` of the JAX tool's flush-size int64 buffer (B x (L-k+1) x
+iters keys), ``merge_runs`` of the table with one batch's unique run (as
+each fold merges), ``compact_runs`` of the sorted flush buffer, each
 beside its bytes over 3.35 TB/s (the H100 SXM data sheet's HBM rate), and
 the bytes a batch moves. The JAX tool's notes on comparator sorts are a
 TPU's and are not carried over.
@@ -52,7 +53,8 @@ import time
 import numpy as np
 import torch
 
-from ..ops import _build, codec, cuda_count, cuda_filter, cuda_fold, pack
+from ..ops import (_build, codec, cuda_count, cuda_filter, cuda_fold,
+                   cuda_merge, pack)
 from ..ops.table import DeviceKmerTable, count_step
 from ..pipeline.driver import RufusPipeline, resolve_device
 from .radixbench import best_ms, card_name_and_power_limit
@@ -123,6 +125,7 @@ def best_s(fn, dev: torch.device, reps: int = REPS):
 def run(dev: torch.device, batch: int = B, iters: int = ITERS) -> dict:
     kernels = {"encode_canon": cuda_count.encode_canon,
                "compact_runs": cuda_fold.compact_runs,
+               "merge_runs": cuda_merge.merge_runs,
                "window_hits": cuda_filter.window_hits, "unpack": pack.unpack}
     for fn in kernels.values():
         fn.launches = 0
@@ -194,11 +197,14 @@ def run(dev: torch.device, batch: int = B, iters: int = ITERS) -> dict:
     n_unique = table.n_keys
     del s
     first = cuda_fold.compact_runs(torch.sort(
-        count_step(dev_batches[0][0], K)).values)[0]
-    both = torch.cat([table.keys, first])
-    merge_ms = best_ms(lambda: torch.sort(both, stable=True), dev)
-    merge_keys = both.numel()
-    del both, first
+        count_step(dev_batches[0][0], K)).values)
+    runs = (table.keys, table.counts, *first)
+    union = []
+    merge_ms = best_ms(lambda: union.append(
+        cuda_merge.merge_runs(*runs)[0].numel()), dev)
+    merge_keys = table.n_keys + first[0].numel()
+    merge_bytes = 16 * (merge_keys + union[0])
+    del runs, first
 
     count_rps = reads_total / count_dt
     filter_rps = reads_total / filter_dt
@@ -218,7 +224,8 @@ def run(dev: torch.device, batch: int = B, iters: int = ITERS) -> dict:
             "count_ms_per_batch": count_dt / iters * 1e3,
             "filter_ms_per_batch": filter_dt / iters * 1e3,
             "includes": "device fold into the resident table (sort + "
-                        "compact_runs at the pipeline's pending size); "
+                        "compact_runs of the pending keys, merge_runs "
+                        "into the table); "
                         "window_hits is exact (no host verify); coverage "
                         "reads with Ns",
             "h2d_ms_per_batch": h2d_dt * 1e3,
@@ -256,9 +263,9 @@ def run(dev: torch.device, batch: int = B, iters: int = ITERS) -> dict:
                 "flush_keys": pend,
                 "measured_sort_ms_at_flush_size": sort_ms,
                 "sort_bound_ms": bound(16 * pend),
-                "measured_stable_merge_sort_ms": merge_ms,
+                "measured_merge_runs_ms": merge_ms,
                 "merge_keys": merge_keys,
-                "merge_sort_bound_ms": bound(16 * merge_keys),
+                "merge_runs_bound_ms": bound(merge_bytes),
                 "measured_compact_runs_ms": compact_ms,
                 "compact_runs_bound_ms": bound(8 * pend + 16 * n_unique),
                 "measured_sort_eff_gbps_vs_hbm_3350": 16 * pend / sort_ms

@@ -14,8 +14,10 @@ card (``make_mesh(n)``), or with --shards-on DEVICE n shards of one card
 themselves and not of moves between cards.
 
 Each mesh runs both count routes: "range" (the local-aggregate count:
-raw keys buffered a shard, one flush) and "hash" (``sharded_count_step``:
-every batch routed to its owners by hash, each owner folding). For each,
+raw keys buffered a shard and flushed by the table's rule, each batch at
+these sizes; its phases time one flush of both batches) and "hash"
+(``sharded_count_step``: every batch routed to its owners by hash, each
+owner folding). For each,
 the best of 5 of: the count of the two batches (reads/s, host clock
 around a synchronised run), its phases with CUDA events (the most any
 card took: encode; the range route's partial sort and compaction, or the
@@ -155,9 +157,12 @@ def bench_mesh(mesh, per_shard: int = PER_SHARD, iters: int = ITERS,
         return t
 
     def buffered():
-        t = table("range")
+        # the batches buffered for one flush: a range table without
+        # splitters waits for its splitters' sample, then takes the run's
+        t = ShardedKmerTable(mesh, K)
         for b in batches:
             fold(t, b)
+        t.splitters = splitters
         return t
 
     filter_s = best_wall_s(mesh, lambda: [sharded_filter_step(

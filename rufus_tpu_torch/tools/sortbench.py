@@ -20,7 +20,20 @@ seeded with 0):
    ``compact_runs`` of n sorted keys drawn from n/2 values (about 0.43 n
    runs);
 4. a sort carrying a payload: the stable sort's indices gathering int64
-   counts, as the fold's merge does, beside the sort alone.
+   counts, as ``merge_sum`` does, beside the sort alone;
+5. the fold's merge (``ops/cuda_merge.py:merge_runs``) of a run of half
+   a batch of unique keys (4 Mi), a third of them in the table, into a
+   table of 10/8 of a batch (10 Mi), as a 4 Mbp sample's table meets a
+   batch's unique run:
+   its time beside its bytes over 3.35 TB/s (16 bytes a key of each run
+   read, 16 a key of the union written), its plain version's and
+   ``merge_sum``'s on the same runs; the three outputs must be equal;
+6. on the card, the device bytes a key of each step of a fold, by
+   ``torch.cuda.max_memory_allocated`` (the budget's constants in
+   ``ops/table.py``): a batch of raw keys folded into an empty
+   ``DeviceKmerTable`` (bytes a pending key), then an eighth of another
+   batch folded into that table (bytes a key of the table and the
+   eighth's unique run), and ``merge_sum`` of the same two runs.
 
 The JAX tool's u32 hi/lo planes and its bitonic merge were the TPU's
 workarounds (no 64-bit lanes, no scatter); the questions stay, the layout
@@ -38,14 +51,15 @@ import os
 
 import torch
 
-from ..ops import _build, cuda_fold
-from ..ops.table import PENDING_KEYS
+from ..ops import _build, count, cuda_fold, cuda_merge
+from ..ops.table import PENDING_KEYS, DeviceKmerTable
 from ..pipeline.driver import resolve_device
 from .radixbench import best_ms, card_name_and_power_limit
 
 DEFAULT_OUT = os.path.join(os.path.dirname(_build.BUILD_ROOT),
                            "sortbench.json")
 BATCH_KEYS = 8 << 20
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 KEY_BITS = 50
 SEED = 0
 
@@ -116,6 +130,83 @@ def sort_with_payload(n: int, seed: int, dev) -> dict:
             "stable_sort_gather_ms": best_ms(merge, dev)}
 
 
+def fold_merge(n_table: int, n_run: int, seed: int, dev) -> dict:
+    """Question 5."""
+    table_k = torch.unique(keys_of(n_table, seed, dev))
+    g = torch.Generator(device="cpu").manual_seed(seed + 4)
+    pick = torch.randperm(table_k.numel(), generator=g)[: n_run // 3]
+    run_k = torch.unique(torch.cat([table_k[pick.to(dev)],
+                                    keys_of(n_run - pick.numel(), seed + 5,
+                                            dev)]))
+    table_c = keys_of(table_k.numel(), seed + 6, dev, high=1000) + 1
+    run_c = keys_of(run_k.numel(), seed + 7, dev, high=1000) + 1
+    runs = (table_k, table_c, run_k, run_c)
+    got = cuda_merge.merge_runs(*runs)
+    plain = cuda_merge.merge_runs_torch(*runs)
+    old = count.merge_sum([table_k, run_k], [table_c, run_c])
+    if not all(torch.equal(a, b) for a, b in zip(got + plain, plain + old)):
+        raise AssertionError("merge_runs, its plain version and merge_sum "
+                             "disagree")
+    nbytes = 16 * (table_k.numel() + run_k.numel() + got[0].numel())
+    before = cuda_merge.merge_runs.launches
+    ms = best_ms(lambda: cuda_merge.merge_runs(*runs), dev)
+    return {"table_keys": table_k.numel(), "run_keys": run_k.numel(),
+            "union_keys": got[0].numel(), "merge_runs_ms": ms,
+            "launches": cuda_merge.merge_runs.launches - before,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+            "plain_ms": best_ms(
+                lambda: cuda_merge.merge_runs_torch(*runs), dev),
+            "merge_sum_ms": best_ms(
+                lambda: count.merge_sum([table_k, run_k], [table_c, run_c]),
+                dev)}
+
+
+def fold_bytes(n: int, seed: int, dev) -> dict | None:
+    """Question 6 (None off the card): a batch of n raw keys, drawn from
+    n / 2 values as a read batch's are about half unique; an eighth of
+    another batch, drawn from values none of the first holds, so that the
+    union is as large as it can be. Each step's inputs are made after the
+    reading it is measured from, and nothing but the table holds them."""
+    if dev.type != "cuda":
+        return None
+
+    def peak_since(base: int) -> int:
+        torch.cuda.synchronize(dev)
+        return torch.cuda.max_memory_allocated(dev) - base
+
+    def eighth():
+        return keys_of(n // 8, seed + 8, dev) + n
+
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = DeviceKmerTable(25, dev)
+    t.fold_batch(keys_of(n, seed, dev, high=n // 2))
+    pending = peak_since(base) / n
+    n_table = t.n_keys
+    u = torch.unique(eighth()).numel()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t.fold_batch(eighth())
+    t.flush()
+    run_merge = peak_since(base) / (n_table + u)
+    folds = t.folds
+    # merge_sum of the same two runs, the parts held by its lists alone
+    parts_k, parts_c = map(list, zip((t.keys[:n_table].clone(),
+                                      t.counts[:n_table].clone()),
+                                     count.count_batch(eighth())))
+    t.release()
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev) - 16 * (n_table + u)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = count.merge_sum(parts_k, parts_c)
+    merge_sum = peak_since(base) / (n_table + u)
+    del out
+    return {"pending_keys": n, "table_keys": n_table, "run_keys": u,
+            "folds": folds, "pending_bytes_per_key": pending,
+            "run_merge_bytes_per_key": run_merge,
+            "merge_sum_bytes_per_key": merge_sum}
+
+
 def run(dev: torch.device, batch_keys: int = BATCH_KEYS,
         pending_keys: int = PENDING_KEYS) -> dict:
     cuda = dev.type == "cuda"
@@ -124,6 +215,9 @@ def run(dev: torch.device, batch_keys: int = BATCH_KEYS,
         "merge": merge_vs_sort(batch_keys, SEED, dev),
         "compaction": gather_vs_compact(batch_keys, SEED, dev),
         "payload": sort_with_payload(batch_keys, SEED, dev),
+        "fold_merge": fold_merge(batch_keys * 10 // 8, batch_keys // 2,
+                                 SEED, dev),
+        "fold_bytes": fold_bytes(batch_keys, SEED, dev),
         "key_bits": KEY_BITS, "seed": SEED,
         "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
         "nvidia_smi": card_name_and_power_limit() if cuda else None}

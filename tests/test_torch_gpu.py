@@ -14,9 +14,10 @@ import numpy as np
 import pytest
 import torch
 
+from merge_cases import CASES, runs, union_sum
 from rufus_tpu_torch import synthetic
 from rufus_tpu_torch.ops import (codec, cuda_count, cuda_filter, cuda_fold,
-                                 cuda_partition, cuda_sw)
+                                 cuda_merge, cuda_partition, cuda_sw)
 from rufus_tpu_torch.pipeline import RufusConfig, RufusPipeline
 
 pytestmark = pytest.mark.gpu
@@ -665,6 +666,78 @@ def test_subtract_chunk_on_card_equals_cpu(tmp_path):
             np.testing.assert_array_equal(a, b)
 
 
+def _large_runs(rng):
+    """The fold's merge at the cells' scale: a table of 10 M keys and a
+    run of 4 M, a third of them in the table."""
+    a = np.unique(rng.integers(0, 1 << 50, 10_000_000))
+    b = np.unique(np.concatenate([rng.choice(a, 4_000_000 // 3, replace=False),
+                                  rng.integers(0, 1 << 50, 4_000_000
+                                               - 4_000_000 // 3)]))
+    return (a, rng.integers(1, 1000, len(a)), b,
+            rng.integers(1, 1000, len(b)))
+
+
+@pytest.mark.parametrize("case", CASES + ["large"])
+def test_merge_runs_kernel(case):
+    """merge_runs on the card equals merge_runs_torch (and numpy's union
+    and sum) on the CPU tests' runs, shared keys across every tile's and
+    thread's cut among them, and at 10 M + 4 M keys."""
+    dev = _card()
+    a, ca, b, cb = (_large_runs(np.random.default_rng(19)) if case == "large"
+                    else runs(case))
+    host = [torch.from_numpy(np.asarray(x, np.int64)) for x in (a, ca, b, cb)]
+    before = cuda_merge.merge_runs.launches
+    got = cuda_merge.merge_runs(*(t.to(dev) for t in host))
+    torch.cuda.synchronize()
+    assert cuda_merge.merge_runs.launches == before + 1
+    want = cuda_merge.merge_runs_torch(*host)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int64
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+    if case != "large":
+        np.testing.assert_array_equal(got[0].cpu().numpy(),
+                                      union_sum(*map(np.asarray, host))[0])
+
+
+def test_resident_count_peak_is_its_table_and_one_batch(tmp_path):
+    """A resident count of a 200 kbp trio on the card folds each batch as it
+    comes, through merge_runs: every sample's device peak over its count,
+    beside the tables already counted, stays under its table and one
+    batch's fold (the larger of the batch's sort and the linear merge of
+    the table and the batch), which a pending buffer of many batches
+    would pass."""
+    from rufus_tpu_torch.ops import table as ptable
+
+    dev = _card()
+    data = synthetic.write_trio(str(tmp_path / "fastq"), genome_bp=200_000,
+                                coverage=30, n_denovo=20, seed=1)
+    c, m, f = data["child"], data["mother"], data["father"]
+    batch = 4096  # ten batches a sample
+    cfg = RufusConfig(subject=",".join(c), controls=[",".join(m), ",".join(f)],
+                      k=25, workdir=str(tmp_path / "wd"), exome=True,
+                      min_cov=5, stop_after="filter", fastq_a=c[0],
+                      fastq_b=c[1], device="cuda", batch_size=batch)
+    pipe = RufusPipeline(cfg)
+    one = batch * (cfg.read_pad - cfg.k + 1)
+    before = cuda_merge.merge_runs.launches
+    samples = [(cfg.subject, cfg.subject_stub)] + [
+        (ctl, cfg.control_stub(ctl)) for ctl in cfg.controls]
+    for path, stub in samples:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        n = len(pipe.count_sample(path, stub, lower=1))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        bound = ptable.TABLE_BYTES * n + max(
+            ptable.PENDING_BYTES * one, ptable.RUN_MERGE_BYTES * (n + one))
+        assert peak <= bound, (stub, peak, bound)
+        # the table stays under four batches: each batch folds alone
+        assert n < 4 * one and pipe._folds[stub] == 10
+        assert pipe._fold_keys_max[stub] == one
+    assert cuda_merge.merge_runs.launches > before
+
+
 def test_table_under_a_budget_on_card(tmp_path):
     """A DeviceKmerTable on the card with a budget a quarter of the
     unconstrained table's folds: it spills, the merged runs equal the
@@ -688,7 +761,7 @@ def test_table_under_a_budget_on_card(tmp_path):
         t.to_flat(runs[-1])
         t.reset()
 
-    budget = 8 * ptable.MERGE_BYTES * (1 << 21)
+    budget = 8 * ptable.RUN_MERGE_BYTES * (1 << 21)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -719,8 +792,7 @@ def test_spilled_slice_on_card_equals_resident_slice_on_cpu(tmp_path, mode):
     from rufus_tpu_torch.ops import table
 
     # the least budget that holds a 512-read batch, and 5% more
-    budget = 1.05 * 512 * (160 - 25 + 1) * max(
-        table.PENDING_BYTES + table.TABLE_BYTES, 2 * table.MERGE_BYTES)
+    budget = 1.05 * 512 * (160 - 25 + 1) * table.CAP_BYTES
     over = {"lsm": dict(spill_tables="on", hbm_budget_gb=budget / 2**30,
                         batch_size=512),
             "multipass": dict(count_passes=3, sharded="off")}[mode]

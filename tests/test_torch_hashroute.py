@@ -315,8 +315,9 @@ def test_hash_partition_refusals(samples, tmp_path):
 def test_scaling_tool_runs_both_routes():
     """tools/scaling.py's measurements at a tiny size on CPU shards (its
     control flow; its times are measured only on cards): both routes give
-    equal tables, the range route exchanges its partials once and the hash
-    route every batch, and the CLI refuses to run without a card."""
+    equal tables, the range route's phases time one exchange of its
+    buffered partials and the hash route's every batch, and the CLI refuses
+    to run without a card."""
     from rufus_tpu_torch.tools import scaling
 
     results = [scaling.bench_mesh(make_mesh(n, "cpu"), per_shard=16,

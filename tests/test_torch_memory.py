@@ -36,9 +36,11 @@ from rufus_tpu_torch.utils import trace
 
 K = 25
 CHUNKS = [100, 4096, 10**6]
-# the JAX count's budget of 32,768 table slots, and the port's of the same
-# bytes: both spill several runs a sample on the 20 kbp trio at batch 120
+# the JAX count's budget of 32,768 table slots, and the port's least budget
+# whose pending cap holds a batch of 120 reads, and 5% more: both spill
+# several runs a sample on the 20 kbp trio at batch 120
 TRIO_BUDGET_GB = 32768 * 64 / 2**30
+PORT_TRIO_BUDGET_GB = 1.05 * 120 * (160 - K + 1) * ptable.CAP_BYTES / 2**30
 FINAL = ".overlap.hashcount.fastq.bam.FINAL.vcf"
 
 
@@ -203,7 +205,7 @@ def test_lsm_spill_count_matches_jax(tmp_path):
                           **_count_kw(fq))).count_sample(fq, "S", lower=2)
     pipe = RufusPipeline(RufusConfig(workdir=str(tmp_path / "p"), device="cpu",
                                      spill_tables="on",
-                                     hbm_budget_gb=0.75 / 1024,
+                                     hbm_budget_gb=0.375 / 1024,
                                      **_count_kw(fq)))
     got = pipe.count_sample(fq, "S", lower=2)
     assert pipe._runs["S"] >= 3 and got.mapped
@@ -222,11 +224,13 @@ def test_lsm_spill_at_the_last_fold_is_merged(tmp_path):
     (the last batch still pending): that spill's run is merged with the
     rest, so the table equals the unconstrained count and no run is left
     on disk. The budget is reckoned from the batches' own unique keys:
-    each batch fits the pending cap alone, two do not, the first two folds
-    stay within it and the third fold's merge passes it."""
+    each batch fits the pending cap alone, two do not, the first three
+    folds stay within it, and the short last batch, below a quarter of
+    the table, waits for the flush after the stream, whose merge passes
+    it."""
     rng = np.random.default_rng(9)
     seqs = ["".join("ACGT"[j] for j in rng.integers(0, 4, 96))
-            for _ in range(3 * 64)]
+            for _ in range(3 * 64 + 6)]
     fq = str(tmp_path / "s.fastq")
     with open(fq, "w") as f:
         for i, s in enumerate(seqs):
@@ -236,16 +240,18 @@ def test_lsm_spill_at_the_last_fold_is_merged(tmp_path):
                                       device="cpu", **kw))
     batches = [ptable.count_step(b, kw["k"])
                for b in plain._batch_stream(fq, None)]
-    assert len(batches) == 3
-    n = batches[0].numel()
+    assert len(batches) == 4
+    n, last = batches[0].numel(), batches[3].numel()
     uniq = [pcount.count_batch(b)[0] for b in batches]
-    first_two = len(torch.unique(torch.cat(uniq[:2])))
-    budget = ptable.MERGE_BYTES * (first_two + len(uniq[2])) - 1
-    cap = budget // (2 * ptable.MERGE_BYTES)
-    assert n < cap < 2 * n
-    assert ptable.MERGE_BYTES * (len(uniq[0]) + len(uniq[1])) <= budget
-    assert (ptable.TABLE_BYTES * first_two + ptable.PENDING_BYTES * n
-            <= budget)
+    first = [len(torch.unique(torch.cat(uniq[:i]))) for i in (1, 2, 3)]
+    merge = ptable.RUN_MERGE_BYTES
+    budget = merge * (first[2] + len(uniq[3])) - 1
+    cap = budget // ptable.CAP_BYTES
+    assert n < cap < 2 * n and 4 * last < first[2]
+    for i in (1, 2):
+        assert merge * (first[i - 1] + len(uniq[i])) <= budget
+        assert (ptable.TABLE_BYTES * first[i - 1] + ptable.PENDING_BYTES * n
+                <= budget)
     pipe = RufusPipeline(RufusConfig(workdir=str(tmp_path / "p"), device="cpu",
                                      spill_tables="on",
                                      hbm_budget_gb=budget / 2**30, **kw))
@@ -323,7 +329,7 @@ def test_table_under_a_budget_spills_and_keeps_its_counts(tmp_path,
         t.to_flat(runs[-1])
         t.reset()
 
-    budget = budget_keys * ptable.MERGE_BYTES
+    budget = budget_keys * ptable.RUN_MERGE_BYTES
     dev = DeviceKmerTable(13, "cpu", budget=budget, spill=spill)
     plain = DeviceKmerTable(13, "cpu")
     for b in batches:
@@ -407,7 +413,8 @@ def spilled(trio, tmp_path_factory):
     resident."""
     d, data = trio
     base = tmp_path_factory.mktemp("spilled")
-    spill = dict(spill_tables="on", hbm_budget_gb=TRIO_BUDGET_GB)
+    spill = dict(spill_tables="on", hbm_budget_gb=PORT_TRIO_BUDGET_GB)
+    jax_spill = dict(spill, hbm_budget_gb=TRIO_BUDGET_GB)
     clock = types.SimpleNamespace(time=lambda: 1700000000)
     mp = pytest.MonkeyPatch()
     mp.setattr(jax_interpret, "time", clock)
@@ -419,7 +426,7 @@ def spilled(trio, tmp_path_factory):
              None),
             ("jax", lambda wd: JaxPipeline(JaxConfig(
                 workdir=wd, sharded="off", table_cap0=1 << 10,
-                **_trio_kw(d, data, **spill))).run(), None),
+                **_trio_kw(d, data, **jax_spill))).run(), None),
             ("resident", lambda wd: RufusPipeline(RufusConfig(
                 workdir=wd, device="cpu",
                 **_trio_kw(d, data, spill_tables="off"))).run(), None)])

@@ -87,8 +87,8 @@ def samples():
                                       ("father", genome))}
 
 
-def _batches(reads):
-    return [reads[i:i + B] for i in range(0, len(reads), B)]
+def _batches(reads, rows=B):
+    return [reads[i:i + rows] for i in range(0, len(reads), rows)]
 
 
 def _jax_keys(n, batch):
@@ -113,11 +113,11 @@ def _jax_shards(t):
     return [(k[m], c[m]) for k, c, m in zip(keys, counts, ok)]
 
 
-def _port_table(n, reads, splitters=None, **kw):
+def _port_table(n, reads, splitters=None, rows=B, **kw):
     mesh = make_mesh(n, "cpu")
     t = ShardedKmerTable(mesh, K, splitters=None if splitters is None
                          else codec.keys_u64_to_i64(splitters), **kw)
-    for batch in _batches(reads):
+    for batch in _batches(reads, rows):
         t.fold_batch(local_count_step(mesh, torch.from_numpy(batch), K))
     t.flush()
     return t
@@ -177,6 +177,47 @@ def test_routing_matches_jax(samples, n):
                                   codec.keys_u64_to_i64(spl))
     assert short.stats["flushes"] == 1
     assert (short.stats["exchanged_keys"] > 0) == (n > 1)
+
+
+@pytest.mark.parametrize("case", ["every_batch", "buffered",
+                                  "splitter_sample"])
+@pytest.mark.parametrize("n", SHARDS)
+def test_range_flushes_follow_the_table(samples, n, case):
+    """A range flush comes once a shard's buffer reaches a quarter of the
+    smallest shard's table: full batches each flush as they come, batches
+    of 6 reads buffer; without splitters the first flush waits for the
+    splitters' sample of SPLIT_BATCHES batches, which the splitters are
+    the quantiles of. The shards equal the JAX table's for the same
+    splitters, whatever the cadence."""
+    from rufus_tpu_torch.parallel.sharded import SPLIT_BATCHES
+
+    reads = samples["child"][0]
+    spl = _splitters(n, reads)
+    rows = B if case == "every_batch" else 6
+    batches = _batches(reads, rows)
+    slice_keys = -(-rows // n) * (L - K + 1)
+    t = _port_table(n, reads, None if case == "splitter_sample" else spl,
+                    rows)
+    if case == "every_batch":
+        assert t.stats["flushes"] == len(batches)
+        assert t.fold_keys_max == slice_keys
+    elif case == "buffered":
+        assert 1 < t.stats["flushes"] < len(batches) // 2
+        assert t.fold_keys_max > slice_keys
+    else:
+        assert 1 < t.stats["flushes"] < len(batches) // 2
+        assert t.fold_keys_max == SPLIT_BATCHES * slice_keys
+        mesh = make_mesh(n, "cpu")
+        np.testing.assert_array_equal(t.splitters, make_splitters(
+            [local_count_step(mesh, torch.from_numpy(b), K)
+             for b in batches[:SPLIT_BATCHES]], n))
+    jt = _jax_table(n, reads, spl)
+    if case == "splitter_sample":
+        got, want = t.to_host(), jt.to_host()
+        np.testing.assert_array_equal(got.keys, want.keys)
+        np.testing.assert_array_equal(got.counts, want.counts)
+    else:
+        _assert_same_shards(_port_shards(t), _jax_shards(jt))
 
 
 @pytest.mark.parametrize("n", SHARDS)
@@ -306,7 +347,7 @@ def test_lsm_spill_matches_resident(samples, n, tmp_path):
     """Under a budget that holds one batch slice (a quarter more, so a
     shard's pending buffer holds one), the table spills whole sorted runs;
     their merge-sum equals the resident table, and the JAX host table."""
-    from rufus_tpu_torch.ops.table import MERGE_BYTES
+    from rufus_tpu_torch.ops.table import CAP_BYTES
 
     reads = np.concatenate([samples[s][0] for s in samples])
     spl = _splitters(n, reads)
@@ -318,7 +359,7 @@ def test_lsm_spill_matches_resident(samples, n, tmp_path):
         t.reset()
 
     slice_keys = -(-B // n) * (L - K + 1)
-    budget = n * int(1.25 * 2 * MERGE_BYTES * slice_keys)
+    budget = n * int(1.25 * CAP_BYTES * slice_keys)
     t = _port_table(n, reads, spl, budget=budget, spill=spill)
     assert t.stats["spills"] == len(runs) >= 2
     runs.append(str(tmp_path / f"t.flat.run{len(runs)}"))

@@ -10,8 +10,9 @@ import torch
 from rufus_tpu.ops import count as jcount
 from rufus_tpu.parallel import (ShardedKmerTable, make_mesh,
                                 sharded_count_step, sharded_subtract_step)
+from merge_cases import CASES, ITEMS, TILE, runs, union_sum
 from rufus_tpu_torch import convert
-from rufus_tpu_torch.ops import codec, count, table
+from rufus_tpu_torch.ops import codec, count, cuda_merge, table
 from rufus_tpu_torch.ops.cuda_count import encode_canon
 
 BASES = np.frombuffer(b"ACGT", np.uint8)
@@ -56,13 +57,27 @@ def _port_table(batches, k, lower, counted=None, budget=3000):
     return t
 
 
-@pytest.mark.parametrize("k,lower", [(13, 0), (25, 2), (31, 2)])
-def test_fold_raw_batches_matches_sharded_table(k, lower):
+@pytest.mark.parametrize("k,lower,reads", [
+    (13, 0, (64,) * 5), (25, 2, (64,) * 5), (31, 2, (64,) * 5),
+    (25, 2, (6,) * 53), (13, 0, (6,) * 53), (25, 2, (64, 64, 6, 64, 6))],
+    ids=["13-0", "25-2", "31-2", "25-2-buffered", "13-0-buffered",
+         "25-2-short"])
+def test_fold_raw_batches_matches_sharded_table(k, lower, reads):
+    """Batches of 64 reads pass a quarter of the table, so each folds as it
+    comes; batches of 6 reads buffer until their keys reach a quarter of
+    the table; a short batch between full ones (a file's last) folds
+    alone before the next full one."""
     rng = np.random.default_rng(k)
     genome = rng.choice(BASES, 3000)
-    batches = [_reads(rng, 64, 60, genome) for _ in range(5)]
+    batches = [_reads(rng, b, 60, genome) for b in reads]
     port = _port_table(batches, k, lower)
-    assert port.folds > 1  # the small budget forces several folds
+    per_batch = max(reads) * (60 - k + 1)
+    if max(reads) == 64:
+        assert port.folds == len(batches)
+        assert port.fold_keys_max == per_batch
+    else:
+        assert 1 < port.folds < len(batches) // 2
+        assert port.fold_keys_max > per_batch
     want = _jax_table(batches, k, lower).to_host()
     keys, counts = convert.table_to_numpy(port)
     np.testing.assert_array_equal(keys, want.keys)
@@ -82,6 +97,75 @@ def test_fold_counted_batches_matches_sharded_table():
     host = port.to_host()
     np.testing.assert_array_equal(host.keys, want.keys)
     np.testing.assert_array_equal(host.counts, want.counts)
+
+
+def _kernel_model(a, ca, b, cb):
+    """csrc/merge.cu's index arithmetic in Python: the tile boundaries and
+    each thread's positions by merge-path co-rank, moved past a shared
+    key's second copy, and each thread's merge of its positions."""
+    a, ca, b, cb = (x.tolist() for x in (a, ca, b, cb))
+    threads = TILE // ITEMS
+
+    def corank(ka, kb, d):
+        lo, hi = max(0, d - len(kb)), min(d, len(ka))
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if ka[mid] <= kb[d - mid - 1]:
+                lo = mid + 1
+            else:
+                hi = mid
+        j = d - lo
+        if lo > 0 and j < len(kb) and ka[lo - 1] == kb[j]:
+            j += 1
+        return lo, j
+
+    n = len(a) + len(b)
+    nt = -(-n // TILE)
+    cuts = [corank(a, b, min(t * TILE, n)) for t in range(nt + 1)]
+    out_k, out_c = [], []
+    for t in range(nt):
+        (a0, b0), (a1, b1) = cuts[t], cuts[t + 1]
+        sa, sca, sb, scb = a[a0:a1], ca[a0:a1], b[b0:b1], cb[b0:b1]
+        size = len(sa) + len(sb)
+        assert size <= TILE + 1 and (t == nt - 1 or size >= TILE - 1)
+        for r in range(threads):
+            d0 = min(r * ITEMS, size)
+            d1 = size if r == threads - 1 else min(d0 + ITEMS, size)
+            (i, j), (i1, j1) = corank(sa, sb, d0), corank(sa, sb, d1)
+            emitted = 0
+            while i < i1 or j < j1:
+                x = sa[i] if i < i1 else codec.SENTINEL
+                y = sb[j] if j < j1 else codec.SENTINEL
+                out_k.append(min(x, y))
+                out_c.append((sca[i] if x <= y else 0)
+                             + (scb[j] if y <= x else 0))
+                i, j = i + (x <= y), j + (y <= x)
+                emitted += 1
+            assert emitted <= ITEMS + 1
+    return np.array(out_k, np.int64), np.array(out_c, np.int64)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_merge_runs_plain_and_kernel_model_match_union(case):
+    """merge_runs on CPU tensors (merge_runs_torch) and the model of the
+    CUDA kernels' tiling against numpy's union and sum: disjoint,
+    interleaved, identical and empty runs, runs whose shared keys straddle
+    every thread's and tile's cut at 4095, 4096, 4097 and more than three
+    tiles of positions, and counts near 2**31, whose sums stay int64."""
+    a, ca, b, cb = runs(case)
+    want_k, want_c = union_sum(a, ca, b, cb)
+    got_k, got_c = cuda_merge.merge_runs(*map(torch.from_numpy,
+                                              (a, ca, b, cb)))
+    assert got_k.dtype == got_c.dtype == torch.int64
+    np.testing.assert_array_equal(got_k.numpy(), want_k)
+    np.testing.assert_array_equal(got_c.numpy(), want_c)
+    model_k, model_c = _kernel_model(a, ca, b, cb)
+    np.testing.assert_array_equal(model_k, want_k)
+    np.testing.assert_array_equal(model_c, want_c)
+    if case.startswith("straddle_"):
+        assert len(want_k) < len(a) + len(b)
+    if case == "counts_near_2_31":
+        assert want_c.max() > 1 << 31
 
 
 def _trio(rng, k):

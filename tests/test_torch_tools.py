@@ -68,6 +68,13 @@ def test_sortbench_on_the_cpu(tmp_path, capsys):
             "sort_unsorted_ms"} <= set(out["merge"])
     assert 0 < out["compaction"]["runs"] < 4096
     assert out["payload"]["stable_sort_gather_ms"] > 0
+    fm = out["fold_merge"]
+    assert fm["table_keys"] == 5120 and fm["run_keys"] == 2048
+    assert fm["union_keys"] == fm["table_keys"] + fm["run_keys"] - 2048 // 3
+    assert fm["launches"] == 0 and fm["merge_runs_ms"] > 0
+    assert fm["bytes"] == 16 * (fm["table_keys"] + fm["run_keys"]
+                                + fm["union_keys"])
+    assert out["fold_bytes"] is None
     assert out["device"] == "cpu"
 
 
