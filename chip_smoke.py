@@ -58,21 +58,6 @@ Phases, each printing one JSON line; any failure exits non-zero:
              the launches, and which other files of the workdir differ (not
              a gate). Four shards on one card show placement and exactness,
              not scaling across cards;
-   hashroute - the hash route on four shards of cuda:0: owner_hash on
-             the card must equal host_owners on a million random keys
-             (n 2, 3, 4, 8); the trio's FASTQ batches, decoded first into
-             pinned memory, are counted three ways, each timed on its own:
-             one shard (DeviceKmerTable), the range route (four shards,
-             local_count_step) and, with the launch counts set to 0, the
-             hash route (sharded_count_step every batch into
-             hash-partitioned tables); then the subtract and the pulls of
-             the contig stage's k-mers by hash owner. Each sample's
-             to_host table must equal the 1-shard run's .table.npz, the
-             HashList its HashList file, the pulls the host query of the
-             saved tables, and encode_canon and compact_runs must launch.
-             Prints the three counts' seconds beside the pipeline's count
-             walls (1 shard, and 4 shards from the sharded phase), the
-             pairs exchanged, the largest and mean shard and the launches;
    multiproc - tools.multiproc_smoke on the visible cards (an NCCL rank a
              card, two shards each), then the trio on a process mesh: one
              NCCL rank a visible card, spawned, four shards in all (one
@@ -213,7 +198,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
 10. scaling - the scaling tool (python -m rufus_tpu_torch.tools.scaling)
              on a shard a visible card, or with one card on 1, 2 and 4
              shards of cuda:0: it prints its own JSON line (count, filter
-             and pull rates and the count's phases of both routes), then
+             and pull rates and the count's phases), then
              a scaling line sums it up.
 
 The slice's pipeline runs under a MemSampler (utils/trace.py, a sample a
@@ -929,123 +914,6 @@ def trio_params(data, workdir):
             "hashlist": hio.hashlist_keys(os.path.join(workdir, hl), K)}
 
 
-def phase_hashroute(data, workdir, sharded_info):
-    """The trio's count by the hash route (sharded_count_step, the
-    hash-partitioned ShardedKmerTable) on four shards of cuda:0, then the
-    subtract and the pulls by hash owner, held to the 1-shard run in
-    workdir (see the module's docstring)."""
-    import numpy as np
-
-    from rufus_tpu_torch.ops import codec, count
-    from rufus_tpu_torch.ops.table import DeviceKmerTable, count_step
-    from rufus_tpu_torch.parallel import (ShardedKmerTable, host_owners,
-                                          local_count_step, make_mesh,
-                                          owner_hash, sharded_count_step,
-                                          sharded_query_multi,
-                                          sharded_subtract_step)
-
-    gc.collect()
-    torch.cuda.empty_cache()
-    p = trio_params(data, workdir)
-    mesh = make_mesh(4, "cuda:0")
-    rng = np.random.default_rng(0)
-    keys = rng.integers(0, 1 << 62, 1 << 20, dtype=np.uint64)
-    keys[::97] = codec.SENTINEL_U64
-    owner_ok = all(np.array_equal(owner_hash(torch.from_numpy(
-        codec.keys_u64_to_i64(keys)).cuda(), n).cpu().numpy(),
-        host_owners(keys, n)) for n in (2, 3, 4, 8))
-    t0 = time.perf_counter()
-    streams = [[b.pin_memory() for b in fastq_batches(data[s])]
-               for s in ("child", "mother", "father")]
-    decode_s = time.perf_counter() - t0
-
-    def count_trio(route):
-        """The three samples' tables on `route`, their floors applied, and
-        the seconds the counts took (the batches already decoded)."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tables, splitters = [], None
-        for stream, low in zip(streams, p["lows"]):
-            if route == "one_shard":
-                t = DeviceKmerTable(K, "cuda")
-                for b in stream:
-                    t.fold_batch(count_step(b.to("cuda", non_blocking=True),
-                                            K))
-            else:
-                t = ShardedKmerTable(mesh, K, splitters=splitters,
-                                     partition=route)
-                for b in stream:
-                    if route == "hash":
-                        ks, cs, _, _ = sharded_count_step(mesh, b, K,
-                                                          t.stats)
-                        t.fold_batch(ks, cs)
-                    else:
-                        t.fold_batch(local_count_step(mesh, b, K))
-            t.flush()
-            splitters = getattr(t, "splitters", None)
-            t.apply_lower_count(low)
-            tables.append(t)
-        torch.cuda.synchronize()
-        return tables, time.perf_counter() - t0
-
-    kernels = _kernels()
-    seconds = {}
-    for route in ("one_shard", "range"):
-        tables, seconds[route] = count_trio(route)
-        for t in tables:
-            t.release()
-        del tables
-    for fn in kernels.values():
-        fn.launches = 0
-    tables, seconds["hash"] = count_trio("hash")
-    t0 = time.perf_counter()
-    mk, mc = sharded_subtract_step(tables[0], tables[1:], *p["subtract"])
-    torch.cuda.synchronize()
-    subtract_s = time.perf_counter() - t0
-    km = tab_kmers(workdir)
-    t0 = time.perf_counter()
-    pulls = sharded_query_multi(tables, km)
-    pulls_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in kernels.items()}
-    differ = []
-    hosts = []
-    for stub, t in zip(p["stubs"], tables):
-        want = count.KmerTable.load(os.path.join(workdir, stub + ".table.npz"))
-        got = t.to_host()
-        hosts.append(want)
-        if not (np.array_equal(got.keys, want.keys)
-                and np.array_equal(got.counts, want.counts)):
-            differ.append(stub + ".table.npz")
-    if not np.array_equal(codec.keys_i64_to_u64(mk.cpu().numpy()),
-                          p["hashlist"]):
-        differ.append("HashList")
-    if not np.array_equal(pulls, np.stack([h.query(km) for h in hosts])):
-        differ.append("pulls")
-    info = {"phase": "hashroute", "shards": mesh.n,
-            "devices": [str(d) for d in mesh.devices],
-            "decode_s": decode_s, "count_s": seconds,
-            "pipeline_count_wall_s": {
-                "one_shard": sharded_info["stage_wall_s"]["count"][1],
-                "range_four_shards": sharded_info["stage_wall_s"]["count"][0]},
-            "exchanged_pairs": [t.stats["exchanged_keys"] for t in tables],
-            "shard_keys_max": [max(t.shard_keys()) for t in tables],
-            "shard_keys_mean": [sum(t.shard_keys()) / mesh.n
-                                for t in tables],
-            "subtract_s": subtract_s, "hashlist_keys": int(mk.numel()),
-            "pulls_s": pulls_s, "pulled": len(km), "launches": launches,
-            "owner_hash_equal": owner_ok, "differ": differ}
-    emit(info)
-    for t in tables:
-        t.release()
-    if differ or not owner_ok:
-        raise AssertionError(f"the hash route differs from the 1-shard run "
-                             f"in {differ}, or owner_hash from host_owners")
-    if launches["encode_canon"] <= 0 or launches["compact_runs"] <= 0:
-        raise AssertionError(f"the hash route never launched a kernel of "
-                             f"its path: {launches}")
-    return info
-
-
 def multiproc_rank(mesh, data, workdir):
     """One NCCL rank of the multiproc phase: the trio from the FASTQ files
     (its rows of every batch) through the count (the range route, the
@@ -1190,9 +1058,8 @@ def phase_scaling(work):
     out = scaling.main(argv)
     emit({"phase": "scaling", "seconds": time.perf_counter() - t0,
           "layout": out["layout"],
-          "count_reads_per_s": {r["shards"]: {
-              route: v["count_reads_per_s"]
-              for route, v in r["routes"].items()} for r in out["results"]}})
+          "count_reads_per_s": {r["shards"]: r["count_reads_per_s"]
+                                for r in out["results"]}})
     return out
 
 
@@ -1999,8 +1866,7 @@ def main():
         data = phase_data(os.path.join(work, "fastq"), args.genome_mbp,
                           args.seed)
         sl, hl_path = phase_slice(data, os.path.join(work, "run"))
-        sharded = phase_sharded(data, work, os.path.join(work, "run"), sl)
-        phase_hashroute(data, os.path.join(work, "run"), sharded)
+        phase_sharded(data, work, os.path.join(work, "run"), sl)
         phase_multiproc(data, os.path.join(work, "run"))
         phase_regenotype(data, os.path.join(work, "run"))
         phase_memory(data, work, os.path.join(work, "run"), sl)

@@ -1,11 +1,10 @@
 """The sharded chain: a sample's k-mer table partitioned over a mesh of
 shards, and the count, subtract, filter and pull steps that run on it.
 
-The port of ``rufus_tpu/parallel/sharded.py``. A table is partitioned in
-one of its two ways:
+The port of ``rufus_tpu/parallel/sharded.py``, range-partitioned (the
+JAX pipeline's local-aggregate count):
 
-  range (the JAX pipeline's local-aggregate count, the default):
-            each shard encodes its contiguous slice of every read batch
+  count:    each shard encodes its contiguous slice of every read batch
             and buffers the raw keys (no exchange a batch); a flush sorts
             and compacts each shard's buffer into sorted unique (key,
             count) partials, cuts them at range splitters (quantiles of a
@@ -13,22 +12,13 @@ one of its two ways:
             shard's part is one slice) and sends each slice to its owner,
             which folds what it receives into its table. The shards in
             order are the sorted table.
-  hash (``sharded_count_step``, the JAX package's per-batch route, kept
-            for streams that want each batch counted where it lands):
-            each shard encodes its slice, collapses adjacent equal keys
-            into run heads with run lengths, and sends each head to the
-            shard its owner hash names, every batch; each owner folds what
-            it receives. The shards hold disjoint keys in no order between
-            them.
-
-  subtract: every sample's table shares the partition, so the modified
+  subtract: every sample's table shares the splitters, so the modified
             merge is local to each shard; the mutant keys of the shards,
-            gathered (and sorted, under a hash partition), are the
-            HashList;
+            gathered in order, are the HashList;
   filter:   the batch in contiguous slices over the shards, the HashList
             replicated;
-  pulls:    queries routed to their owner shard (by splitters or by hash),
-            searched there in every table, the answers routed back.
+  pulls:    queries routed to their owner shard by the splitters, searched
+            there in every table, the answers routed back.
 
 A ``ShardMesh`` is the shards one process holds, in shard order, and its
 place among the processes of a ``torch.distributed`` group. On one
@@ -61,7 +51,6 @@ import torch.distributed as dist
 
 from ..ops import codec, count
 from ..ops import query as _query
-from ..ops.cuda_count import encode_canon
 from ..ops.cuda_filter import hashlist_index, window_hits
 from ..ops.table import (PENDING_BYTES, PENDING_KEYS, TABLE_BYTES,
                          DeviceKmerTable, count_step, make_splitters,
@@ -69,12 +58,6 @@ from ..ops.table import (PENDING_BYTES, PENDING_KEYS, TABLE_BYTES,
 
 SPLIT_BATCHES = 16  # batches whose keys sample the splitters, at most
 SPLIT_SAMPLE = 1 << 16  # keys the splitters are the quantiles of, at most
-PARTITIONS = ("range", "hash")
-
-# The owner hash's multipliers (the JAX package's _MIX1.._MIX3), applied
-# to a key's 32-bit halves with 32-bit wrapping.
-_MIX1, _MIX2, _MIX3 = 0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D
-_LO32 = 0xFFFFFFFF
 
 
 @dataclass(frozen=True)
@@ -259,83 +242,6 @@ def owners_by_splitters(keys: torch.Tensor, splitters: torch.Tensor):
                        torch.full_like(owner, splitters.numel() + 1), owner)
 
 
-def _mul32(x: torch.Tensor, m: int) -> torch.Tensor:
-    """(x * m) mod 2**32 for int64 x in [0, 2**32) and m < 2**32, by
-    16-bit halves of x, so that no product passes 2**63: int64 overflow
-    is not defined to wrap alike on every device."""
-    return (((((x >> 16) * m) & 0xFFFF) << 16) + (x & 0xFFFF) * m) & _LO32
-
-
-def owner_hash(keys: torch.Tensor, n: int) -> torch.Tensor:
-    """Owner shard of int64 keys under the hash partition: the JAX
-    package's ``_owner_hash_hilo`` on the keys' 32-bit halves (a
-    multiplicative mixer, near uniform for any key distribution and any
-    n), bit for bit. Sentinel keys get owner n; at n = 1 every other key's
-    owner is 0."""
-    if n == 1:
-        owner = torch.zeros_like(keys)
-    else:
-        h = _mul32(keys >> 32, _MIX1) ^ _mul32(keys & _LO32, _MIX2)
-        h = h ^ (h >> 15)
-        h = _mul32(h, _MIX3)
-        h = h ^ (h >> 13)
-        owner = h % n
-    return torch.where(keys == codec.SENTINEL, torch.full_like(owner, n),
-                       owner)
-
-
-def host_owners(kmers: np.ndarray, n_shards: int,
-                splitters: np.ndarray | None = None) -> np.ndarray:
-    """Owner shard of host uint64 k-mers (the reference's layout): the
-    numpy mirror of ``owner_hash`` and ``owners_by_splitters``, a copy of
-    the JAX package's function. Sentinel keys get owner n_shards."""
-    kmers = np.asarray(kmers, np.uint64)
-    if splitters is not None:
-        owner = np.searchsorted(np.asarray(splitters, np.uint64), kmers,
-                                side="right").astype(np.int32)
-    elif n_shards == 1:
-        owner = np.zeros(kmers.shape, np.int32)
-    else:
-        hi = (kmers >> np.uint64(32)).astype(np.uint32)
-        lo = kmers.astype(np.uint32)
-        with np.errstate(over="ignore"):
-            h = (hi * np.uint32(_MIX1)) ^ (lo * np.uint32(_MIX2))
-            h = h ^ (h >> np.uint32(15))
-            h = h * np.uint32(_MIX3)
-            h = h ^ (h >> np.uint32(13))
-        owner = (h % np.uint32(n_shards)).astype(np.int32)
-    return np.where(kmers == codec.SENTINEL_U64, np.int32(n_shards), owner)
-
-
-def route_capacity(m: int, n_shards: int, slack: float = 0.3) -> int:
-    """The JAX package's per-peer bin width for m keys over n_shards bins
-    of a uniform hash: mean + max(slack*mean, 6*sqrt(mean)), a multiple of
-    128, at most m. A copy kept with the owner functions: the port sizes
-    its segments exactly and never uses it."""
-    if n_shards == 1:
-        return m
-    mean = m / n_shards
-    cap = mean + max(slack * mean, 6.0 * np.sqrt(max(mean, 1.0)))
-    cap = int(-(-cap // 128) * 128)
-    return max(128, min(m, cap))
-
-
-def exact_route_cap(padded_queries: np.ndarray, n_shards: int,
-                    splitters: np.ndarray | None = None) -> int:
-    """The JAX package's exact per-peer bin width of a (n_shards, qcap)
-    query dispatch: the largest (source row, owner) count by
-    ``host_owners``, rounded up to a multiple of 128."""
-    q = np.asarray(padded_queries, np.uint64).reshape(n_shards, -1)
-    mx = 0
-    for row in q:
-        owner = host_owners(row, n_shards, splitters)
-        owner = owner[owner < n_shards]
-        if len(owner):
-            mx = max(mx, int(np.bincount(owner,
-                                         minlength=n_shards).max()))
-    return max(128, -(-mx // 128) * 128)
-
-
 def segment_bounds(keys: torch.Tensor, splitters: torch.Tensor):
     """The n+1 bounds that cut a sorted unique partial (no sentinels) into
     its owners' slices: 0, the first position >= each splitter (side
@@ -361,43 +267,6 @@ def local_count_step(mesh: ShardMesh, reads: torch.Tensor, k: int) -> list:
     return out
 
 
-def _route_by_hash(keys: torch.Tensor, n: int):
-    """A shard's raw window keys, in the flattened (B, W) order -> the
-    heads of its runs of adjacent equal keys and the runs' lengths (a
-    homopolymer read's windows are one key, sent once), sentinels dropped,
-    cut into one segment an owner shard (a stable sort by owner, so each
-    segment keeps the heads' order)."""
-    m = keys.numel()
-    head = torch.ones(m, dtype=torch.bool, device=keys.device)
-    head[1:] = keys[1:] != keys[:-1]
-    at = torch.nonzero(head).squeeze(1)
-    runs = torch.diff(at, append=at.new_full((1,), m))
-    heads = keys[at]
-    valid = heads != codec.SENTINEL
-    heads, runs = heads[valid], runs[valid]
-    owner = owner_hash(heads, n)
-    order = torch.sort(owner, stable=True).indices
-    sizes = torch.bincount(owner, minlength=n).tolist()
-    return heads[order].split(sizes), runs[order].split(sizes)
-
-
-def hash_segments(mesh: ShardMesh, reads: torch.Tensor, k: int):
-    """The hash route's work before its exchange: the rows cut into
-    contiguous slices, one a shard, each encoded on its shard and cut by
-    ``_route_by_hash``. Returns the keys' and the counts' segments,
-    [shard of this process][owner shard]."""
-    seg_keys, seg_counts = [], []
-    for part, d in zip(reads.tensor_split(mesh.local), mesh.devices):
-        if part.shape[0] == 0:
-            keys = torch.empty(0, dtype=torch.int64, device=d)
-        else:
-            keys = encode_canon(part.to(d, non_blocking=True), k).reshape(-1)
-        sk, sc = _route_by_hash(keys, mesh.n)
-        seg_keys.append(sk)
-        seg_counts.append(sc)
-    return seg_keys, seg_counts
-
-
 def exchange(mesh: ShardMesh, seg_keys: list, seg_counts: list,
              stats: dict | None = None):
     """(key, count) segments, [shard of this process][owner shard], sent
@@ -410,31 +279,6 @@ def exchange(mesh: ShardMesh, seg_keys: list, seg_counts: list,
             seg_keys[s][dst].numel() for s in range(mesh.local)
             for dst in range(mesh.n) if dst != mesh.first + s)
     return all_to_all(mesh, seg_keys), all_to_all(mesh, seg_counts)
-
-
-def sharded_count_step(mesh: ShardMesh, reads: torch.Tensor, k: int,
-                       stats: dict | None = None):
-    """The hash-routed count of one batch (the JAX package's
-    ``sharded_count_step``): a (B, L) uint8 read batch (on a process mesh
-    the rank's rows), cut into contiguous slices, one a shard, each
-    encoded on its shard, its runs of adjacent equal keys collapsed into
-    heads with run lengths, each head sent to its owner by hash. Returns
-    (keys, counts, n_valid, dropped): for each shard of this process the
-    keys it owns and received this batch and their counts (in source-shard
-    order), the number received, and 0: segments are sized exactly, so no
-    key is dropped. With `stats`, its "exchanged_keys" gains the pairs
-    this process's shards sent to other shards.
-
-    On one shard it is ``count_step``: the raw keys, sentinels included,
-    counts None (the fold counts them), no route."""
-    if mesh.n == 1:
-        keys = count_step(reads.to(mesh.devices[0], non_blocking=True), k)
-        return [keys], None, [int((keys != codec.SENTINEL).sum())], 0
-    keys_in, counts_in = exchange(mesh, *hash_segments(mesh, reads, k),
-                                  stats)
-    keys = [torch.cat(parts) for parts in keys_in]
-    counts = [torch.cat(parts) for parts in counts_in]
-    return keys, counts, [t.numel() for t in keys], 0
 
 
 def mesh_splitters(mesh: ShardMesh, batches: list) -> np.ndarray:
@@ -458,31 +302,25 @@ def mesh_splitters(mesh: ShardMesh, batches: list) -> np.ndarray:
 class ShardedKmerTable:
     """A sample's count table over a mesh: shard s holds, as a
     DeviceKmerTable on its device, the sorted unique keys it owns and
-    their counts. Under the range partition shard s owns
-    [splitters[s-1], splitters[s]) and the shards in order are the whole
-    sorted table; under the hash partition it owns the keys ``owner_hash``
-    gives it.
+    their counts: shard s owns [splitters[s-1], splitters[s]), so the
+    shards in order are the whole sorted table.
 
-    Range: batches (one raw key tensor a shard, ``local_count_step``) are
+    Batches (one raw key tensor a shard, ``local_count_step``) are
     buffered a shard until a shard's buffer reaches the least of
     `pending_budget` and a quarter of the smallest shard's table, the rule
     of DeviceKmerTable, then flushed: partials, exchange, owners' folds.
     `splitters` is the run's partition; None freezes it at the first
     flush, or after SPLIT_BATCHES batches, from those batches' keys, and
     until then the buffers wait for `pending_budget` alone, so that the
-    splitters sample more than one batch. Hash: batches arrive routed
-    (``sharded_count_step``'s keys and counts) and each shard folds its
-    own. `folds` counts the shards' folds, `fold_keys_max` the most keys
-    a shard's buffer (range) or a shard's fold (hash) took.
+    splitters sample more than one batch. `folds` counts the shards'
+    folds, `fold_keys_max` the most keys a shard's buffer took.
 
     With `budget` (bytes) and `spill` (one process only), each shard's
-    DeviceKmerTable guards budget // n, and a range flush guards each
-    shard's sort of its buffer beside its table the same way; when any
-    shard's fold would pass its share, `spill(self)` writes the whole
-    table as one sorted run and calls `reset` (a run must hold every
-    shard's range, so the partition must be by range). `stats` counts
-    flushes, the (key, count) pairs this process's shards sent to other
-    shards, and spills.
+    DeviceKmerTable guards budget // n, and a flush guards each shard's
+    sort of its buffer beside its table the same way; when any shard's
+    fold would pass its share, `spill(self)` writes the whole table as
+    one sorted run and calls `reset`. `stats` counts flushes, the (key,
+    count) pairs this process's shards sent to other shards, and spills.
 
     On a process mesh every rank builds the table and folds every batch
     (its slice may be empty). The decisions that lead to a collective, a
@@ -493,24 +331,13 @@ class ShardedKmerTable:
 
     def __init__(self, mesh: ShardMesh, k: int, splitters=None,
                  pending_budget: int = PENDING_KEYS,
-                 budget: int | None = None, spill=None,
-                 partition: str = "range"):
-        if partition not in PARTITIONS:
-            raise ValueError(f"partition must be one of {PARTITIONS}, not "
-                             f"{partition!r}")
-        if partition == "hash" and splitters is not None:
-            raise ValueError("a hash-partitioned table has no splitters")
+                 budget: int | None = None, spill=None):
         if spill is not None and mesh.world > 1:
             raise NotImplementedError(
                 "a spilled run is written from every shard's table, which "
                 "a process of a process mesh holds only in part")
-        if spill is not None and partition == "hash" and mesh.n > 1:
-            raise ValueError("flat spill needs a range partition "
-                             "(hash-partitioned rows do not concatenate "
-                             "sorted)")
         self.mesh = mesh
         self.k = codec.check_k(k)
-        self.partition = partition
         self.splitters = (None if splitters is None
                           else np.asarray(splitters, np.int64))
         if self.splitters is not None and len(self.splitters) != mesh.n - 1:
@@ -527,20 +354,12 @@ class ShardedKmerTable:
                                else min(pending_budget, self.pending_cap))
         self._pending: list = [[] for _ in mesh.devices]
         self._pending_els = [0] * mesh.local
-        self._flush_keys_max = 0
+        self.fold_keys_max = 0
         self.stats = {"flushes": 0, "exchanged_keys": 0, "spills": 0}
 
     @property
     def folds(self) -> int:
         return sum(s.folds for s in self.shards)
-
-    @property
-    def fold_keys_max(self) -> int:
-        """The most keys one fold took: a shard's buffer at a range flush,
-        or a hash shard's own fold."""
-        if self.partition == "hash":
-            return max(s.fold_keys_max for s in self.shards)
-        return self._flush_keys_max
 
     @property
     def n_keys(self) -> int:
@@ -556,25 +375,16 @@ class ShardedKmerTable:
         return [int(t) for t in all_gather(
             self.mesh, [torch.tensor([v], device=dev) for v in sizes])]
 
-    def fold_batch(self, parts: list, counts: list | None = None):
-        """Queue one batch, a tensor a shard of this process on its device:
-        raw count-1 keys (the range partition's ``local_count_step``), or
-        the keys and counts that ``sharded_count_step`` routed to each
-        shard (the hash partition; raw keys, counts None, on one shard).
-        Range: flushes when a shard's buffer reaches the least of the
-        budget and a quarter of the smallest shard's table; first, when
-        the batch would pass a shard's cap under a device budget, or
-        reaches that alone, what is buffered."""
+    def fold_batch(self, parts: list):
+        """Queue one batch of raw count-1 keys, a tensor a shard of this
+        process on its device (``local_count_step``). Flushes when a
+        shard's buffer reaches the least of the budget and a quarter of
+        the smallest shard's table; first, when the batch would pass a
+        shard's cap under a device budget, or reaches that alone, what is
+        buffered."""
         if len(parts) != self.mesh.local:
             raise ValueError(f"{len(parts)} parts for {self.mesh.local} "
                              "shards")
-        if self.partition == "hash":
-            for shard, keys, c in zip(self.shards, parts,
-                                      counts or [None] * len(parts)):
-                shard.fold_batch(keys, c)
-            return
-        if counts is not None:
-            raise ValueError("a range-partitioned table folds raw keys")
         sizes = [p.numel() for p in parts]
         largest, pending, least = all_max(self.mesh, [
             max(sizes), max(e + s for e, s in zip(self._pending_els, sizes)),
@@ -602,7 +412,7 @@ class ShardedKmerTable:
             self.flush()
 
     def _fold_at(self, least: int) -> int:
-        """Keys in a shard's buffer that start a range flush, `least` the
+        """Keys in a shard's buffer that start a flush, `least` the
         smallest shard's table: `pending_budget` until the splitters are
         frozen."""
         if self.splitters is None:
@@ -622,16 +432,11 @@ class ShardedKmerTable:
         self.stats["spills"] += 1
 
     def flush(self):
-        """Fold every buffered batch. Hash: each shard folds its own.
-        Range: each shard's buffer sorted and compacted into a partial,
-        the partials cut at the splitters and exchanged, each owner folding
-        what it receives (the counted route of compact_runs). Each shard's
-        segment bounds are read on the host to size the exchange
-        exactly."""
-        if self.partition == "hash":
-            for shard in self.shards:
-                shard.flush()
-            return
+        """Fold every buffered batch: each shard's buffer sorted and
+        compacted into a partial, the partials cut at the splitters and
+        exchanged, each owner folding what it receives (the counted route
+        of compact_runs). Each shard's segment bounds are read on the host
+        to size the exchange exactly."""
         # every rank buffers every batch, so all agree whether one is here
         if not any(self._pending):
             return
@@ -644,12 +449,12 @@ class ShardedKmerTable:
             self._spill_all()
             self._pending, self._pending_els = pending, els
         self.stats["flushes"] += 1
-        self._flush_keys_max = max(self._flush_keys_max, *self._pending_els)
+        self.fold_keys_max = max(self.fold_keys_max, *self._pending_els)
         self.fold_received(*exchange(self.mesh, *self.partials(),
                                      self.stats))
 
     def partials(self):
-        """The range flush's local work: each shard's buffered raw keys
+        """The flush's local work: each shard's buffered raw keys
         sorted and compacted into a sorted unique partial, cut at the
         splitters into one (key, count) segment an owner shard (the
         segment bounds read on the host, which sizes the exchange). Empties
@@ -695,29 +500,21 @@ class ShardedKmerTable:
 
     def to_host(self) -> count.KmerTable:
         """Every shard's keys and counts gathered into a host KmerTable
-        (uint64 keys): the shards concatenated, sorted under a hash
-        partition. On a process mesh every rank gets the whole table."""
+        (uint64 keys): the shards concatenated. On a process mesh every
+        rank gets the whole table."""
         self.flush()
         keys = torch.cat([t.cpu() for t in all_gather(
             self.mesh, [s.keys for s in self.shards])])
         counts = torch.cat([t.cpu() for t in all_gather(
             self.mesh, [s.counts for s in self.shards])])
-        if self.partition == "hash":
-            keys, order = torch.sort(keys)
-            counts = counts[order]
         return count.KmerTable(self.k, codec.keys_i64_to_u64(keys.numpy()),
                                counts.numpy())
 
     def to_flat(self, path: str, chunk: int = 1 << 25) -> count.KmerTable:
         """The flat layout of the concatenated shards, through chunked
         device-to-host slices and a temporary file; returns the memmapped
-        KmerTable. Needs a range partition (or one shard) on one
-        process."""
+        KmerTable. Needs one process."""
         self.flush()
-        if self.mesh.n > 1 and self.partition == "hash":
-            raise ValueError("flat spill needs a range partition "
-                             "(hash-partitioned rows do not concatenate "
-                             "sorted)")
         if self.mesh.world > 1:
             raise NotImplementedError(
                 "a process of a process mesh holds only its own shards; "
@@ -746,21 +543,18 @@ class ShardedKmerTable:
             shard.release()
 
 
-def _partition_of(tables: list):
-    """The partition the tables share, ("range", splitters) or ("hash",
-    None); ValueError if their meshes, partitions or splitters differ
-    (their shards would not hold the same keys)."""
+def _shared_splitters(tables: list):
+    """The splitters the tables share; ValueError if their meshes or
+    splitters differ (their shards would not hold the same keys)."""
     first = tables[0]
     for t in tables[1:]:
-        if (t.mesh != first.mesh or t.partition != first.partition
-                or (first.partition == "range"
-                    and (t.splitters is None or first.splitters is None
-                         or not np.array_equal(t.splitters,
-                                               first.splitters)))):
+        if (t.mesh != first.mesh or t.splitters is None
+                or first.splitters is None
+                or not np.array_equal(t.splitters, first.splitters)):
             raise ValueError("sharded tables of different partitions: every "
-                             "table of a run must share its mesh, its "
-                             "partition and its splitters")
-    return first.partition, first.splitters
+                             "table of a run must share its mesh and its "
+                             "splitters")
+    return first.splitters
 
 
 # -- the stage steps ----------------------------------------------------------
@@ -770,15 +564,15 @@ def sharded_subtract_step(subject: ShardedKmerTable, controls: list,
                           merge_min: int, min_cov: int, max_depth: int):
     """``ops.table.subtract_step`` on each shard's subject and controls
     (SUBJECT keys absent from every control, subject count in
-    [max(merge_min, min_cov), max_depth]); the tables share the partition,
+    [max(merge_min, min_cov), max_depth]); the tables share the splitters,
     so no key crosses shards. Returns the sorted mutant keys and their
     subject counts on the first shard's device: the shards' results in
-    order, sorted under a hash partition, and on a process mesh gathered
-    from every rank, since the filter needs the HashList on each."""
+    order, and on a process mesh gathered from every rank, since the
+    filter needs the HashList on each."""
     tables = [subject, *controls]
     for t in tables:
         t.flush()
-    partition, _ = _partition_of(tables)
+    _shared_splitters(tables)
     mesh = subject.mesh
     dev0 = mesh.devices[0]
     keys, counts = [], []
@@ -790,9 +584,6 @@ def sharded_subtract_step(subject: ShardedKmerTable, controls: list,
         counts.append(mc.to(dev0))
     keys = torch.cat(all_gather(mesh, keys))
     counts = torch.cat(all_gather(mesh, counts))
-    if partition == "hash":
-        keys, order = torch.sort(keys)
-        counts = counts[order]
     return keys, counts
 
 
@@ -837,7 +628,7 @@ def sharded_query_multi(tables: list, kmers_u64: np.ndarray) -> np.ndarray:
     rank's own queries) in every table of `tables` (ShardedKmerTables of
     one partition), 0 when absent, as a (len(tables), len(kmers)) int64
     host array: the queries routed from the first shard of this process to
-    their owner shards (by splitters or by hash), one
+    their owner shards by the splitters, one
     ``torch.searchsorted`` a table there, the answers routed back and put
     in query order. On a process mesh every rank must call it, with or
     without queries."""
@@ -849,11 +640,10 @@ def sharded_query_multi(tables: list, kmers_u64: np.ndarray) -> np.ndarray:
         return out
     for t in tables:
         t.flush()
-    partition, splitters = _partition_of(tables)
+    splitters = _shared_splitters(tables)
     q = torch.from_numpy(codec.keys_u64_to_i64(
         np.asarray(kmers_u64, np.uint64)))
-    owner = (owners_by_splitters(q, splitters_on(splitters, "cpu"))
-             if partition == "range" else owner_hash(q, mesh.n))
+    owner = owners_by_splitters(q, splitters_on(splitters, "cpu"))
     order = torch.argsort(owner, stable=True)
     sizes = torch.bincount(owner, minlength=mesh.n + 1)[:mesh.n].tolist()
     routed = q[order].split(sizes + [len(q) - sum(sizes)])[:mesh.n]

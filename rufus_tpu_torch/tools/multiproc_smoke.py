@@ -9,9 +9,8 @@ which joins a ``torch.distributed`` group through a file store and takes
 its mesh from ``parallel.make_process_mesh``: on "cuda" (the default) one
 NCCL rank a visible card, on "cpu" SMOKE_PROCS gloo ranks (default 4),
 each holding --local-shards shards. Every rank counts a planted trio
-(k 13, 16 reads of 48 bases a shard, in four batches) into tables of both
-partitions, the range partition's local-aggregate count and the hash
-partition's per-batch route, then subtracts, filters and pulls; each must
+(k 13, 16 reads of 48 bases a shard, in four batches) into
+range-partitioned tables, then subtracts, filters and pulls; each must
 equal the one-shard host build (the tables, the HashList with the planted
 k-mers in it, the kept reads, the pulls of present and absent k-mers).
 Exit code 0 and "MULTIPROC SMOKE PASS" on success. A missing card, or a
@@ -37,8 +36,8 @@ from ..ops import codec, count
 from ..ops.filter import filter_single
 from ..parallel import (ShardedKmerTable, local_count_step, local_rows,
                         make_process_mesh, replicate_hashlist,
-                        sharded_count_step, sharded_filter_step,
-                        sharded_query_multi, sharded_subtract_step)
+                        sharded_filter_step, sharded_query_multi,
+                        sharded_subtract_step)
 
 TIMEOUT_S = 300  # the group's collectives and each rank's join, at most
 
@@ -107,60 +106,48 @@ def _batches(reads, b):
 
 def run_chain(mesh, samples: dict, k: int, batch: int, queries: np.ndarray,
               lower: int, merge_min: int, min_cov: int, max_depth: int,
-              min_q: int, threshold: int, partitions=("range", "hash")):
+              min_q: int, threshold: int):
     """The trio chain on `mesh`, each rank's part: `samples` is {"child":
     (reads, quals, lens), "mother": reads, "father": reads} (host arrays,
-    the whole batch stream; each rank takes its rows of each batch). For
-    each partition: count each sample (floor `lower`; the range tables
-    share the child's splitters), subtract, filter the child's reads and
-    pull `queries` (each rank its rows of them). Returns host arrays:
-    per partition p, each table (p_table{i}_keys/_counts, whole on every
-    rank), every shard's key count (p_shard_keys), the splitters
-    (range_splitters), the HashList (p_hl_keys/_counts), the keep mask of
-    this rank's rows of each batch (p_keep) and the pulls of its queries
-    (p_pulls, tables x queries)."""
+    the whole batch stream; each rank takes its rows of each batch). Counts
+    each sample (floor `lower`; the tables share the child's splitters),
+    subtracts, filters the child's reads and pulls `queries` (each rank
+    its rows of them). Returns host arrays: each table (table{i}_keys and
+    _counts, whole on every rank), every shard's key count (shard_keys),
+    the splitters, the HashList (hl_keys, hl_counts), the keep mask of
+    this rank's rows of each batch (keep) and the pulls of its queries
+    (pulls, tables x queries)."""
     child = samples["child"]
-    stream = [child[0], samples["mother"], samples["father"]]
     out = {}
-    for part in partitions:
-        splitters, tables = None, []
-        for reads in stream:
-            t = ShardedKmerTable(mesh, k, splitters=splitters,
-                                 partition=part)
-            for b in _batches(reads, batch):
-                rows = local_rows(mesh, torch.from_numpy(b))
-                if part == "range":
-                    t.fold_batch(local_count_step(mesh, rows, k))
-                else:
-                    keys, counts, _, _ = sharded_count_step(mesh, rows, k,
-                                                            t.stats)
-                    t.fold_batch(keys, counts)
-            t.flush()
-            splitters = t.splitters
-            t.apply_lower_count(lower)
-            tables.append(t)
-        for i, t in enumerate(tables):
-            host = t.to_host()
-            out[f"{part}_table{i}_keys"] = host.keys
-            out[f"{part}_table{i}_counts"] = host.counts
-        out[f"{part}_shard_keys"] = np.array(
-            [t.shard_keys() for t in tables], np.int64)
-        if part == "range":
-            out["range_splitters"] = tables[0].splitters
-        hk, hc = sharded_subtract_step(tables[0], tables[1:], merge_min,
-                                       min_cov, max_depth)
-        out[f"{part}_hl_keys"] = codec.keys_i64_to_u64(hk.cpu().numpy())
-        out[f"{part}_hl_counts"] = hc.cpu().numpy()
-        hl = replicate_hashlist(mesh, hk, k)
-        keep = [sharded_filter_step(
-            mesh, [[local_rows(mesh, torch.from_numpy(a[i:i + batch]))
-                    for a in child]], hl, k, min_q, threshold)
-            for i in range(0, len(child[0]), batch)]
-        out[f"{part}_keep"] = torch.cat(keep).numpy()
-        out[f"{part}_pulls"] = sharded_query_multi(
-            tables, local_rows(mesh, queries))
-        for t in tables:
-            t.release()
+    splitters, tables = None, []
+    for reads in (child[0], samples["mother"], samples["father"]):
+        t = ShardedKmerTable(mesh, k, splitters=splitters)
+        for b in _batches(reads, batch):
+            t.fold_batch(local_count_step(
+                mesh, local_rows(mesh, torch.from_numpy(b)), k))
+        t.flush()
+        splitters = t.splitters
+        t.apply_lower_count(lower)
+        tables.append(t)
+    for i, t in enumerate(tables):
+        host = t.to_host()
+        out[f"table{i}_keys"] = host.keys
+        out[f"table{i}_counts"] = host.counts
+    out["shard_keys"] = np.array([t.shard_keys() for t in tables], np.int64)
+    out["splitters"] = tables[0].splitters
+    hk, hc = sharded_subtract_step(tables[0], tables[1:], merge_min,
+                                   min_cov, max_depth)
+    out["hl_keys"] = codec.keys_i64_to_u64(hk.cpu().numpy())
+    out["hl_counts"] = hc.cpu().numpy()
+    hl = replicate_hashlist(mesh, hk, k)
+    keep = [sharded_filter_step(
+        mesh, [[local_rows(mesh, torch.from_numpy(a[i:i + batch]))
+                for a in child]], hl, k, min_q, threshold)
+        for i in range(0, len(child[0]), batch)]
+    out["keep"] = torch.cat(keep).numpy()
+    out["pulls"] = sharded_query_multi(tables, local_rows(mesh, queries))
+    for t in tables:
+        t.release()
     return out
 
 
@@ -215,24 +202,20 @@ def smoke_rank(mesh, k: int = 13) -> dict:
                                 .numpy() for i in range(0, B, B // 4)])
     want_pulls = np.stack([h.query(local_rows(mesh, queries))
                            for h in hosts])
-    for part in ("range", "hash"):
-        for i, h in enumerate(hosts):
-            if not (np.array_equal(got[f"{part}_table{i}_keys"], h.keys)
-                    and np.array_equal(got[f"{part}_table{i}_counts"],
-                                       h.counts)):
-                raise AssertionError(f"rank {mesh.rank}: {part} table {i} "
-                                     "differs from the host build")
-        if not np.array_equal(got[f"{part}_hl_keys"], ref):
-            raise AssertionError(f"rank {mesh.rank}: {part} HashList "
-                                 "differs from the host build")
-        if not set(planted.tolist()) <= set(ref.tolist()):
-            raise AssertionError("the planted k-mers are not in the "
-                                 "HashList")
-        if not np.array_equal(got[f"{part}_keep"], want_keep.astype(bool)):
-            raise AssertionError(f"rank {mesh.rank}: {part} keep mask "
-                                 "differs")
-        if not np.array_equal(got[f"{part}_pulls"], want_pulls):
-            raise AssertionError(f"rank {mesh.rank}: {part} pulls differ")
+    for i, h in enumerate(hosts):
+        if not (np.array_equal(got[f"table{i}_keys"], h.keys)
+                and np.array_equal(got[f"table{i}_counts"], h.counts)):
+            raise AssertionError(f"rank {mesh.rank}: table {i} differs from "
+                                 "the host build")
+    if not np.array_equal(got["hl_keys"], ref):
+        raise AssertionError(f"rank {mesh.rank}: HashList differs from the "
+                             "host build")
+    if not set(planted.tolist()) <= set(ref.tolist()):
+        raise AssertionError("the planted k-mers are not in the HashList")
+    if not np.array_equal(got["keep"], want_keep.astype(bool)):
+        raise AssertionError(f"rank {mesh.rank}: keep mask differs")
+    if not np.array_equal(got["pulls"], want_pulls):
+        raise AssertionError(f"rank {mesh.rank}: pulls differ")
     print(f"rank {mesh.rank}: parity ok on {mesh.local} shards of "
           f"{mesh.devices[0]}, {len(ref)} mutant k-mers, "
           f"{len(local_rows(mesh, queries))} routed queries", flush=True)

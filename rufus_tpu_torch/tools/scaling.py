@@ -13,21 +13,19 @@ card (``make_mesh(n)``), or with --shards-on DEVICE n shards of one card
 (``make_mesh(n, DEVICE)``, 1, 2 and 4), which shows the cost of the steps
 themselves and not of moves between cards.
 
-Each mesh runs both count routes: "range" (the local-aggregate count:
-raw keys buffered a shard and flushed by the table's rule, each batch at
-these sizes; its phases time one flush of both batches) and "hash"
-(``sharded_count_step``: every batch routed to its owners by hash, each
-owner folding). For each,
-the best of 5 of: the count of the two batches (reads/s, host clock
-around a synchronised run), its phases with CUDA events (the most any
-card took: encode; the range route's partial sort and compaction, or the
-hash route's collapse and cut; the exchange; the owners' folds), the
+The count is the range route's (the local-aggregate count: raw keys
+buffered a shard and flushed by the table's rule, each batch at these
+sizes; its phases time one flush of both batches). The best of 5 of: the
+count of the two batches (reads/s, host clock around a synchronised
+run), its phases with CUDA events (the most any card took: encode; the
+partial sort and compaction; the exchange; the owners' folds), the
 (key, count) pairs that crossed between shards and their bytes a shard
-(16 a pair), the subtract of three such tables, and the pull of 16,384
+(16 a pair), the subtract of three such tables, the pull of 16,384
 queries a shard (canonical k-mers of the first batch) from the three
-tables (lookups/s). The filter (one mate against a 4,096-key HashList)
-is the same for both routes. ``count_scaling_eff`` is reads/s at n over n
-times reads/s at 1 shard. The two routes' tables must be equal.
+tables (lookups/s), and the filter (one mate against a 4,096-key
+HashList). ``count_scaling_eff`` is reads/s at n over n times reads/s at
+1 shard. The mesh's table must equal a one-shard mesh's table of the
+same batches.
 
 It needs a card: without one it raises. It prints one JSON line with the
 card's name and power limit (nvidia-smi) and the card count, and writes
@@ -45,9 +43,8 @@ import numpy as np
 import torch
 
 from ..ops import _build, codec
-from ..parallel import (ShardedKmerTable, exchange, hash_segments,
-                        local_count_step, make_mesh, mesh_splitters,
-                        replicate_hashlist, sharded_count_step,
+from ..parallel import (ShardedKmerTable, exchange, local_count_step,
+                        make_mesh, mesh_splitters, replicate_hashlist,
                         sharded_filter_step, sharded_query_multi,
                         sharded_subtract_step)
 from .radixbench import card_name_and_power_limit
@@ -137,123 +134,79 @@ def bench_mesh(mesh, per_shard: int = PER_SHARD, iters: int = ITERS,
     hashlist = replicate_hashlist(mesh, hl.to(mesh.devices[0]), K)
     splitters = mesh_splitters(mesh, [local_count_step(mesh, batches[0], K)])
 
-    def table(route):
-        return ShardedKmerTable(mesh, K, partition=route,
-                                splitters=splitters if route == "range"
-                                else None)
-
-    def fold(t, b):
-        if t.partition == "range":
-            t.fold_batch(local_count_step(mesh, b, K))
-        else:
-            keys, counts, _, _ = sharded_count_step(mesh, b, K, t.stats)
-            t.fold_batch(keys, counts)
-
-    def count_epoch(route, stream=batches):
-        t = table(route)
+    def count_epoch(stream=batches, on=mesh):
+        t = ShardedKmerTable(on, K, splitters=splitters if on is mesh
+                             else None)
         for b in stream:
-            fold(t, b)
+            t.fold_batch(local_count_step(on, b, K))
         t.flush()
         return t
 
     def buffered():
-        # the batches buffered for one flush: a range table without
-        # splitters waits for its splitters' sample, then takes the run's
+        # the batches buffered for one flush: a table without splitters
+        # waits for its splitters' sample, then takes the run's
         t = ShardedKmerTable(mesh, K)
         for b in batches:
-            fold(t, b)
+            t.fold_batch(local_count_step(mesh, b, K))
         t.splitters = splitters
         return t
+
+    def received():
+        return ShardedKmerTable(mesh, K, splitters=splitters), exchange(
+            mesh, *buffered().partials())
 
     filter_s = best_wall_s(mesh, lambda: [sharded_filter_step(
         mesh, [(b, quals, lens)], hashlist, K, 15, 1) for b in batches], reps)
     pool = local_count_step(mesh, batches[0], K)[0].cpu()
     pool = codec.keys_i64_to_u64(pool[pool != codec.SENTINEL].numpy())
     queries = pool[rng.integers(0, len(pool), n * QCAP)]
-    out = {"shards": n, "devices": [str(d) for d in mesh.devices],
-           "reads": B * iters,
-           "filter_reads_per_s": B * iters / filter_s, "routes": {}}
-    hosts = {}
-    for route in ("range", "hash"):
-        count_s = best_wall_s(mesh, lambda: count_epoch(route), reps)
-        t = count_epoch(route)
-        hosts[route] = t.to_host()
-        encode = phase_ms(mesh, lambda: (), lambda: local_count_step(
-            mesh, batches[0], K), reps)
-        if route == "range":
-            local = phase_ms(mesh, lambda: (buffered(),),
-                             lambda t_: t_.partials(), reps)
-            what = "partial_sort_ms"
-            segs_of = lambda: buffered().partials()  # noqa: E731
-        else:
-            local = phase_ms(mesh, lambda: (), lambda: hash_segments(
-                mesh, batches[0], K), reps) - encode
-            what = "collapse_and_cut_ms"
-            segs_of = lambda: hash_segments(mesh, batches[0], K)  # noqa: E731
-        ex = phase_ms(mesh, lambda: segs_of(), lambda k_, c_: exchange(
-            mesh, k_, c_), reps)
-
-        def received():
-            t_ = table(route)
-            if route == "range":
-                got = [exchange(mesh, *buffered().partials())]
-            else:
-                got = [exchange(mesh, *hash_segments(mesh, b, K))
-                       for b in batches]
-            return t_, got
-
-        def owners_fold(t_, got):
-            if route == "range":
-                t_.fold_received(*got[0])
-            else:
-                for keys_in, counts_in in got:
-                    t_.fold_batch([torch.cat(p) for p in keys_in],
-                                  [torch.cat(p) for p in counts_in])
-                t_.flush()
-
-        fold_ms = phase_ms(mesh, received, owners_fold, reps)
-        if route == "hash" and n == 1:
-            # one shard: the step is count_step and the fold takes raw keys
-            local = ex = fold_ms = None
-        trio = [count_epoch(route, [batches[s % iters]]) for s in range(3)]
-        sub_s = best_wall_s(mesh, lambda: sharded_subtract_step(
-            trio[0], trio[1:], 2, 2, 10 ** 9), reps)
-        pull_s = best_wall_s(mesh, lambda: sharded_query_multi(trio, queries),
-                             reps)
-        pairs = t.stats["exchanged_keys"]
-        sizes = t.shard_keys()
-        out["routes"][route] = {
+    count_s = best_wall_s(mesh, count_epoch, reps)
+    t = count_epoch()
+    host = t.to_host()
+    one = count_epoch(on=make_mesh(1, mesh.devices[0])).to_host()
+    if not (np.array_equal(host.keys, one.keys)
+            and np.array_equal(host.counts, one.counts)):
+        raise AssertionError(f"the table of {n} shards differs from the "
+                             "one-shard table of the same batches")
+    encode = phase_ms(mesh, lambda: (), lambda: local_count_step(
+        mesh, batches[0], K), reps)
+    local = phase_ms(mesh, lambda: (buffered(),), lambda t_: t_.partials(),
+                     reps)
+    ex = phase_ms(mesh, lambda: buffered().partials(),
+                  lambda k_, c_: exchange(mesh, k_, c_), reps)
+    fold_ms = phase_ms(mesh, received, lambda t_, got: t_.fold_received(
+        *got), reps)
+    trio = [count_epoch([batches[s % iters]]) for s in range(3)]
+    sub_s = best_wall_s(mesh, lambda: sharded_subtract_step(
+        trio[0], trio[1:], 2, 2, 10 ** 9), reps)
+    pull_s = best_wall_s(mesh, lambda: sharded_query_multi(trio, queries),
+                         reps)
+    pairs = t.stats["exchanged_keys"]
+    sizes = t.shard_keys()
+    return {"shards": n, "devices": [str(d) for d in mesh.devices],
+            "reads": B * iters, "filter_reads_per_s": B * iters / filter_s,
             "count_reads_per_s": B * iters / count_s, "count_s": count_s,
             "phase_ms": {"encode_per_batch": encode,
-                         what + (" (all batches)" if route == "range"
-                                 else " (per batch)"): local,
-                         "exchange_ms" + (" (the flush)" if route == "range"
-                                          else " (per batch)"): ex,
+                         "partial_sort_ms (all batches)": local,
+                         "exchange_ms (the flush)": ex,
                          "owners_fold_ms (all batches)": fold_ms},
             "exchanged_pairs": pairs,
             "exchanged_bytes_per_shard": pairs * PAIR_BYTES / n,
             "shard_keys_max": max(sizes), "shard_keys_mean": sum(sizes) / n,
             "subtract_ms": sub_s * 1e3,
-            "query_lookups_per_s": len(queries) * 3 / pull_s}
-    if not (np.array_equal(hosts["range"].keys, hosts["hash"].keys)
-            and np.array_equal(hosts["range"].counts, hosts["hash"].counts)):
-        raise AssertionError(f"the range and hash routes' tables differ at "
-                             f"{n} shards")
-    out["unique_keys"] = len(hosts["range"])
-    return out
+            "query_lookups_per_s": len(queries) * 3 / pull_s,
+            "unique_keys": len(host)}
 
 
 def efficiencies(results: list) -> None:
-    """Adds count_scaling_eff a route, and filter_scaling_eff: the rate at
-    n over n times the rate at one shard."""
+    """Adds count_scaling_eff and filter_scaling_eff: the rate at n over n
+    times the rate at one shard."""
     base = results[0]
     for r in results:
         n = r["shards"] / base["shards"]
-        r["filter_scaling_eff"] = (r["filter_reads_per_s"]
-                                   / (base["filter_reads_per_s"] * n))
-        for route, v in r["routes"].items():
-            v["count_scaling_eff"] = v["count_reads_per_s"] / (
-                base["routes"][route]["count_reads_per_s"] * n)
+        for what in ("count", "filter"):
+            r[f"{what}_scaling_eff"] = (r[f"{what}_reads_per_s"]
+                                        / (base[f"{what}_reads_per_s"] * n))
 
 
 def main(argv=None) -> dict:

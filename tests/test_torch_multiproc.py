@@ -2,9 +2,8 @@
 steps of parallel/sharded.py between ranks) on the CPU: gloo ranks spawned
 through torch.multiprocessing's "spawn" start method, the group joined
 through a file store in a temporary directory (so that test workers never
-share a port), 2 ranks x 1 shard and 2 ranks x 2 shards. Each run's
-tables, shard sizes, splitters, HashList, keep masks and pulls, under
-both partitions, must equal the single-process make_mesh(n, "cpu") run's
+share a port), 2 ranks x 1, 2 and 3 shards. Each run's tables, shard
+sizes, splitters, HashList, keep masks and pulls must equal the single-process make_mesh(n, "cpu") run's
 and the JAX package's one-shard results. Inputs: the seeded reads of
 tests/test_torch_sharded.py (20 kbp genome, k = 25, 96-read batches).
 Tolerance: none. Every spawn has a timeout: a rank that hangs fails the
@@ -29,7 +28,7 @@ from test_torch_sharded import (  # noqa: F401  (fixtures)
     B, K, LOWER, MAX_DEPTH, MERGE_MIN, MIN_COV, _batches, _jax_keys,
     one_torch_thread, samples)
 
-CONFIGS = {"2x1": (2, 1), "2x2": (2, 2)}
+CONFIGS = {"2x1": (2, 1), "2x2": (2, 2), "2x3": (2, 3)}
 MIN_Q, THRESHOLD = 15, 1
 TIMEOUT_S = 120
 
@@ -37,7 +36,7 @@ TIMEOUT_S = 120
 @pytest.fixture(scope="module")
 def queries(samples):
     """Present k-mers of each sample and absent ones, shuffled: 301, a
-    multiple of neither 2 nor 4."""
+    multiple of none of 2, 4 and 6."""
     rng = np.random.default_rng(9)
     present = []
     for s in ("child", "mother", "father"):
@@ -103,22 +102,21 @@ def _rank_meshes(world, local):
             for r in range(world)]
 
 
-def _global_keep(runs, world, local, part, n_rows):
+def _global_keep(runs, world, local, n_rows):
     """The ranks' keep masks put back in row order: each rank's is its rows
     of each batch in turn."""
     out, at = [], [0] * world
     for i in range(0, n_rows, B):
         for r, mesh in enumerate(_rank_meshes(world, local)):
             m = len(local_rows(mesh, range(i, min(i + B, n_rows))))
-            out.append(runs[r][f"{part}_keep"][at[r]:at[r] + m])
+            out.append(runs[r]["keep"][at[r]:at[r] + m])
             at[r] += m
     return np.concatenate(out)
 
 
 @pytest.mark.parametrize("config", CONFIGS)
-@pytest.mark.parametrize("part", ["range", "hash"])
 def test_process_tables_match(process_runs, single_runs, jax_one_shard,
-                              config, part):
+                              config):
     """Every rank's gathered tables, and every shard's size, equal the
     single-process mesh's; the tables equal JAX's one-shard tables."""
     world, local = CONFIGS[config]
@@ -126,13 +124,13 @@ def test_process_tables_match(process_runs, single_runs, jax_one_shard,
     for run in process_runs[config]:
         for i, jt in enumerate(jax_one_shard["tables"]):
             for plane in ("keys", "counts"):
-                got = run[f"{part}_table{i}_{plane}"]
-                np.testing.assert_array_equal(
-                    got, single[f"{part}_table{i}_{plane}"])
+                got = run[f"table{i}_{plane}"]
+                np.testing.assert_array_equal(got,
+                                              single[f"table{i}_{plane}"])
                 np.testing.assert_array_equal(got, getattr(jt, plane))
-        np.testing.assert_array_equal(run[f"{part}_shard_keys"],
-                                      single[f"{part}_shard_keys"])
-    assert single[f"{part}_shard_keys"].shape == (3, world * local)
+        np.testing.assert_array_equal(run["shard_keys"],
+                                      single["shard_keys"])
+    assert single["shard_keys"].shape == (3, world * local)
 
 
 @pytest.mark.parametrize("config", CONFIGS)
@@ -144,47 +142,45 @@ def test_process_splitters_match(process_runs, single_runs, samples, config):
     want = jax_make_splitters([_jax_keys(n, b) for b in
                                _batches(samples["child"][0])[:16]], n)
     for run in process_runs[config]:
-        np.testing.assert_array_equal(run["range_splitters"],
-                                      single_runs[n]["range_splitters"])
-        np.testing.assert_array_equal(run["range_splitters"],
+        np.testing.assert_array_equal(run["splitters"],
+                                      single_runs[n]["splitters"])
+        np.testing.assert_array_equal(run["splitters"],
                                       codec.keys_u64_to_i64(want))
 
 
 @pytest.mark.parametrize("config", CONFIGS)
-@pytest.mark.parametrize("part", ["range", "hash"])
 def test_process_hashlist_matches(process_runs, single_runs, jax_one_shard,
-                                  config, part):
+                                  config):
     """Every rank gets the whole sorted HashList and its subject counts."""
     world, local = CONFIGS[config]
     for run in process_runs[config]:
         for plane in ("keys", "counts"):
-            got = run[f"{part}_hl_{plane}"]
+            got = run[f"hl_{plane}"]
             np.testing.assert_array_equal(
-                got, single_runs[world * local][f"{part}_hl_{plane}"])
+                got, single_runs[world * local][f"hl_{plane}"])
             np.testing.assert_array_equal(got, jax_one_shard[f"hl_{plane}"])
     assert len(jax_one_shard["hl_keys"]) > 0
 
 
 @pytest.mark.parametrize("config", CONFIGS)
-@pytest.mark.parametrize("part", ["range", "hash"])
 def test_process_keep_and_pulls_match(process_runs, single_runs,
-                                      jax_one_shard, samples, queries, config,
-                                      part):
+                                      jax_one_shard, samples, queries,
+                                      config):
     """The ranks' keep masks of their rows, and the pulls of their queries
     (routed to owners on any rank and back), put together equal the
     single-process run's and JAX's."""
     world, local = CONFIGS[config]
     runs = process_runs[config]
     single = single_runs[world * local]
-    keep = _global_keep(runs, world, local, part, len(samples["child"][0]))
-    np.testing.assert_array_equal(keep, single[f"{part}_keep"])
+    keep = _global_keep(runs, world, local, len(samples["child"][0]))
+    np.testing.assert_array_equal(keep, single["keep"])
     np.testing.assert_array_equal(keep, jax_one_shard["keep"])
     assert 0 < keep.sum() < len(keep)
-    pulls = np.concatenate([r[f"{part}_pulls"] for r in runs], axis=1)
-    np.testing.assert_array_equal(pulls, single[f"{part}_pulls"])
+    pulls = np.concatenate([r["pulls"] for r in runs], axis=1)
+    np.testing.assert_array_equal(pulls, single["pulls"])
     np.testing.assert_array_equal(pulls, jax_one_shard["pulls"])
     assert (pulls == 0).any() and (pulls > 0).any()
-    sizes = [r[f"{part}_pulls"].shape[1] for r in runs]
+    sizes = [r["pulls"].shape[1] for r in runs]
     assert sizes == [len(local_rows(m, queries))
                      for m in _rank_meshes(world, local)]
 

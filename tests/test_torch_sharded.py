@@ -1,7 +1,8 @@
 """The port's sharded chain (rufus_tpu_torch/parallel/sharded.py) against the
 JAX package's on the CPU: JAX on the 8 virtual devices of conftest.py, the
 port on make_mesh(n, "cpu") with the plain versions of its kernels, at
-n in {1, 2, 4, 8}. Inputs: reads of a seeded 20 kbp genome (substitution
+n in {1, 2, 3, 4, 6, 8} (3 and 6 cut a batch into uneven slices and take
+an odd number of splitters). Inputs: reads of a seeded 20 kbp genome (substitution
 errors, N bases, low-quality bases), k = 25, 96-read batches. Tolerance:
 none, every value is an integer or a byte.
 """
@@ -21,7 +22,9 @@ from rufus_tpu.parallel import ShardedKmerTable as JaxTable
 from rufus_tpu.parallel import local_count_step as jax_local_count_step
 from rufus_tpu.parallel import make_mesh as jax_make_mesh
 from rufus_tpu.parallel import make_splitters as jax_make_splitters
+from rufus_tpu.parallel import sharded as jsh
 from rufus_tpu.parallel import sharded_filter_step as jax_filter_step
+from rufus_tpu.parallel import sharded_query_step as jax_query_step
 from rufus_tpu.parallel import sharded_subtract_step as jax_subtract_step
 from rufus_tpu.pipeline import RufusConfig as JaxConfig
 from rufus_tpu.pipeline import RufusPipeline as JaxPipeline
@@ -34,7 +37,7 @@ from rufus_tpu_torch.ops.table import (DeviceKmerTable, count_step,
 from rufus_tpu_torch.parallel import (ShardedKmerTable, local_count_step,
                                       make_mesh, make_splitters,
                                       replicate_hashlist, sharded_filter_step,
-                                      sharded_query_multi,
+                                      sharded_query_multi, sharded_query_step,
                                       sharded_subtract_step)
 from rufus_tpu_torch.pipeline import RufusConfig, RufusPipeline
 from test_torch_pipeline import (  # noqa: F401  (fixtures)
@@ -42,7 +45,7 @@ from test_torch_pipeline import (  # noqa: F401  (fixtures)
 
 K = 25
 B, L, BATCHES = 96, 100, 6
-SHARDS = [1, 2, 4, 8]
+SHARDS = [1, 2, 3, 4, 6, 8]
 BASES = np.frombuffer(b"ACGT", np.uint8)
 MERGE_MIN, MIN_COV, MAX_DEPTH, LOWER = 2, 2, 1000, 2
 
@@ -340,6 +343,75 @@ def test_pulls_match_jax(samples, n):
     want = JaxDriver._routed_query_multi(probe, jt, q)
     np.testing.assert_array_equal(got, want)
     assert sharded_query_multi(pt, q[:0]).shape == (3, 0)
+
+
+@pytest.mark.parametrize("n", SHARDS)
+def test_sharded_query_matches_jax(samples, n):
+    """The single-table sharded_query_step equals JAX's by-splitters
+    sharded_query_step with the table's splitters, and the three-table
+    sharded_query_multi equals JAX's by-splitters sharded_query_multi and
+    the host query; absent k-mers and a query count that is a multiple of
+    no n > 1 included."""
+    pt = _trio_tables(samples, n, _port_table)
+    jt = _trio_tables(samples, n, _jax_table)
+    hosts = [t.to_host() for t in pt]
+    rng = np.random.default_rng(5 + n)
+    present = np.concatenate([h.keys[::41] for h in hosts])
+    absent = np.setdiff1d(rng.integers(0, 1 << (2 * K), 300,
+                                       dtype=np.uint64),
+                          np.concatenate([h.keys for h in hosts]))
+    q = rng.permutation(np.concatenate([present, absent]))
+    q = q[:len(q) - len(q) % 8 - 3]
+    got = sharded_query_multi(pt, q)
+    for t, h in enumerate(hosts):
+        np.testing.assert_array_equal(got[t], h.query(q))
+    np.testing.assert_array_equal(sharded_query_step(pt[0], q), got[0])
+    assert (got == 0).any() and (got > 0).any()
+
+    mesh = jt[0].mesh
+    qcap = -(-len(q) // n)
+    padded = np.full(n * qcap, jcount.SENTINEL, np.uint64)
+    padded[:len(q)] = q
+    qd = jax.device_put(jnp.asarray(padded.reshape(n, qcap)),
+                        jax.sharding.NamedSharding(
+                            mesh, jax.sharding.PartitionSpec("d")))
+    spl = jax.device_put(jnp.asarray(jt[0].splitters, jnp.uint64),
+                         jax.sharding.NamedSharding(
+                             mesh, jax.sharding.PartitionSpec()))
+    rcap = jsh.exact_route_cap(padded, n, jt[0].splitters)
+    one, dropped = jax_query_step(mesh, K, qcap, rcap, by_splitters=True)(
+        qd, jt[0].keys, jt[0].counts, spl)
+    assert int(np.asarray(dropped).sum()) == 0
+    np.testing.assert_array_equal(np.asarray(one).ravel()[:len(q)], got[0])
+    multi, dropped = jsh.sharded_query_multi(mesh, K, qcap, 3, rcap, True)(
+        qd, [t.keys for t in jt], [t.counts for t in jt], spl)
+    assert int(np.asarray(dropped).sum()) == 0
+    np.testing.assert_array_equal(np.asarray(multi).reshape(3, -1)
+                                  [:, :len(q)], got)
+
+
+def test_range_partition_refusals(samples):
+    """The subtract and the pulls refuse tables of different meshes or
+    splitters; a table refuses splitters that do not fit its mesh, and a
+    budget spill on a process mesh."""
+    from rufus_tpu_torch.parallel import ShardMesh
+
+    reads = samples["mother"][0]
+    two = _port_table(2, reads)
+    for other in (_port_table(4, reads),
+                  _port_table(2, reads, np.array([1 << 40], np.uint64))):
+        for pair in ((two, other), (other, two)):
+            with pytest.raises(ValueError, match="different partitions"):
+                sharded_subtract_step(pair[0], [pair[1]], MERGE_MIN,
+                                      MIN_COV, MAX_DEPTH)
+            with pytest.raises(ValueError, match="different partitions"):
+                sharded_query_multi(list(pair),
+                                    np.arange(5, dtype=np.uint64))
+    with pytest.raises(ValueError, match="2 splitters for 2 shards"):
+        ShardedKmerTable(make_mesh(2, "cpu"), K, splitters=np.array([5, 9]))
+    ranks = ShardMesh((torch.device("cpu"),), rank=0, world=2)
+    with pytest.raises(NotImplementedError, match="process mesh"):
+        ShardedKmerTable(ranks, K, budget=1 << 30, spill=lambda t: None)
 
 
 @pytest.mark.parametrize("n", SHARDS)

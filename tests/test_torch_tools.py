@@ -1,6 +1,6 @@
 """The port's tools (tools/bench.py, sortbench.py, alignbench.py,
-scale_run.py) on the CPU at tiny sizes, and scale_run's truth generator
-against the JAX tool's bytes from the same seed."""
+scale_run.py, scaling.py) on the CPU at tiny sizes, and scale_run's truth
+generator against the JAX tool's bytes from the same seed."""
 
 import gzip
 import importlib.util
@@ -9,8 +9,12 @@ import os
 import shutil
 
 import numpy as np
+import pytest
+import torch
 
-from rufus_tpu_torch.tools import alignbench, bench, scale_run, sortbench
+from rufus_tpu_torch.parallel import make_mesh
+from rufus_tpu_torch.tools import (alignbench, bench, scale_run, scaling,
+                                   sortbench)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "golden")
@@ -163,3 +167,23 @@ def test_scale_run_on_the_cpu(monkeypatch, tmp_path, capsys):
     assert [m["pos"] for m in out["mosaic_evidence"]] == [
         t["pos"] for t in out["recovered"] if t["kind"] == "mosaic"]
     assert os.path.exists(run / "child.R1.fastq.gz.generator.table.flat")
+
+
+def test_scaling_tool_runs():
+    """tools/scaling.py's measurements at a tiny size on CPU shards (its
+    control flow; its times are measured only on cards): the two-shard
+    table equals the one-shard table (the tool checks it), the phases
+    time one flush of the buffered partials, the pairs cross only between
+    shards, and the CLI refuses to run without a card."""
+    results = [scaling.bench_mesh(make_mesh(n, "cpu"), per_shard=16,
+                                  iters=2, reps=1) for n in (1, 2)]
+    scaling.efficiencies(results)
+    one, two = results
+    assert one["unique_keys"] > 0 and two["reads"] == 2 * one["reads"]
+    assert one["exchanged_pairs"] == 0 < two["exchanged_pairs"]
+    assert one["count_scaling_eff"] == one["filter_scaling_eff"] == 1.0
+    assert len(two["phase_ms"]) == 4
+    assert two["shard_keys_mean"] * 2 == two["unique_keys"]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            scaling.main(["--out", "/dev/null"])
