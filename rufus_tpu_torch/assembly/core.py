@@ -16,12 +16,18 @@ output-visible quirk is kept:
   not per-base tracks;
 * depth values cap at 250 per base on merge.
 
-The pairwise scoring is O(window) per (pair, offset), on the host.
+The pairwise scoring is O(window) per (pair, offset), on the host, in the
+port's native library (`Align3`).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+import ctypes
+import itertools
+from array import array
+from dataclasses import dataclass
+
+from ..ops import _build
 
 
 @dataclass
@@ -62,109 +68,53 @@ def count_hashes(seq: str, table: set, k: int) -> int:
     return count
 
 
-def align3(seqs, quals, A: str, Aq: str, i: int, min_percent: float,
-           min_overlap: int, j_range, perfect_box: list):
-    """Align3 core for one query A against candidate indices j_range.
-
-    perfect_box is a 1-element mutable [bool] shared across calls (the
+class Align3:
+    """The Align3 overlap scorer of one reference tool, in the port's native
+    host library (``native/assemble.cpp``): `OVERLAP_SAM` for OverlapSam
+    and OverlapRegion (OverlapSam.cpp:33-241), `OVERLAP` for the Overlap
+    rounds (Overlap.cpp:169-357: each candidate's best starts at -1 and
+    phase 3 tests `percent > minPercent`). A call scores one query A
+    against the candidates `cands` (indices into `seqs`, as they stand
+    after earlier merges) and returns (best_score, overlap_k, best_index);
+    `perfect_box` is a 1-element mutable [bool] shared across calls (the
     reference shares PerfectMatch across the omp loop AND the fwd/rev
-    calls). Returns (best_score, overlap_k, best_index).
-    """
-    best_score = 0
-    best_index = -1
-    best_overlap = 0
-    Alen = len(A)
-    for j in j_range:
-        B = seqs[j]
-        Bq = quals[j]
-        Blen = len(B)
-        if Blen > Alen:
-            window, longest, a_is_long = Alen, Blen, False
-        else:
-            window, longest, a_is_long = Blen, Alen, True
-        if window == 0:
-            continue
-        MM = window - (window * min_percent)
-        local_best, local_idx, local_ov = 0, -1, 0
-        # phase 1: slide the shorter fully inside the longer
-        a_off = b_off = 0
-        for off in range(0, longest - window + 1):
-            score = 0.0
-            aborted = False
-            for kk in range(window):
-                ca = A[kk + a_off]
-                cb = B[kk + b_off]
-                if ca == cb and cb != "N":
-                    score += 1
-                if (kk - score) > MM:
-                    score = -1.0
-                    aborted = True
-                    break
-            if a_is_long:
-                a_off += 1
-            else:
-                b_off += 1
-            percent = score / window
-            if percent >= min_percent:
-                if local_best < score:
-                    local_best = score
-                    local_idx = j
-                    local_ov = -off if a_is_long else off
-                if score == window:
-                    perfect_box[0] = True
-                    break
-        if not perfect_box[0]:
-            # phase 2: A suffix vs B prefix
-            for ov in range(window - 1, min_overlap - 1, -1):
-                score = 0.0
-                kk = 0
-                brk = False
-                for kk in range(ov + 1):
-                    ca = A[Alen - ov + kk - 1]
-                    cb = B[kk]
-                    if ca == cb and cb != "N":
-                        score += 1
-                    if (kk - score) > MM:
-                        score = -1.0
-                        brk = True
-                        break
-                kdiv = kk if brk else ov + 1
-                percent = score / kdiv if kdiv else -1
-                if percent >= min_percent:
-                    if local_best < score:
-                        local_best = score
-                        local_idx = j
-                        local_ov = ov - Alen + 1
-                        if score == ov:
-                            break
-            # phase 3: B suffix vs A prefix
-            for ov in range(window - 1, min_overlap - 1, -1):
-                score = 0.0
-                kk = 0
-                brk = False
-                for kk in range(ov + 1):
-                    cb = B[Blen - ov + kk - 1]
-                    ca = A[kk]
-                    if cb == ca and ca != "N":
-                        score += 1
-                    if (kk - score) > MM:
-                        score = -1.0
-                        brk = True
-                        break
-                kdiv = kk if brk else ov + 1
-                percent = score / kdiv if kdiv else -1
-                if percent >= min_percent:
-                    if local_best < score:
-                        local_best = score
-                        local_idx = j
-                        local_ov = Blen - ov - 1
-                        if score == ov:
-                            break
-        if best_score < local_best:
-            best_score = local_best
-            best_index = local_idx
-            best_overlap = local_ov
-    return best_score, best_overlap, best_index
+    calls). `queries` and `pairs` count the calls and the query-candidate
+    pairs scored."""
+
+    OVERLAP_SAM, OVERLAP = 0, 1
+
+    def __init__(self, tool: int):
+        self.tool = tool
+        self.queries = 0
+        self.pairs = 0
+        p, i64 = ctypes.c_void_p, ctypes.c_longlong
+        self._fn = _build.host_function(
+            "align3_score", i64,
+            (p, i64, p, p, p, i64, ctypes.c_double, i64, ctypes.c_int, p, p,
+             p))
+
+    def __call__(self, seqs, A: str, cands, min_percent: float,
+                 min_overlap: int, perfect_box: list):
+        cands = list(cands)
+        n = len(cands)
+        self.queries += 1
+        self.pairs += n
+        picked = [seqs[j] for j in cands]
+        a = A.encode("utf-32-le")
+        cat = "".join(picked).encode("utf-32-le")
+        offs = array("q", [0])
+        offs.extend(itertools.accumulate(len(s) for s in picked))
+        idx = array("q", cands)
+        flag = ctypes.c_int(bool(perfect_box[0]))
+        score = ctypes.c_double()
+        overlap = ctypes.c_longlong()
+        best = self._fn(a, len(A), cat, offs.buffer_info()[0],
+                        idx.buffer_info()[0], n, min_percent, min_overlap,
+                        self.tool, ctypes.byref(flag), ctypes.byref(score),
+                        ctypes.byref(overlap))
+        perfect_box[0] = bool(flag.value)
+        # the reference's score stays the integer 0 until a candidate wins
+        return (score.value if score.value > 0 else 0), overlap.value, best
 
 
 def colaps_contigs(A: Contig, B: Contig, k: int) -> Contig:

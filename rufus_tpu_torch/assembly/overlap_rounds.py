@@ -4,7 +4,8 @@ Re-derivation of Overlap.cpp (rounds 1-3, Overlap.shorter.sh:141-165) and
 OverlapRegion.cpp (round 4, :176). Output-visible quirks preserved:
 
 * Overlap's Align3 phase 3 uses STRICT `percent > minPercent` (Overlap.cpp
-  :332) while phases 1-2 and all of OverlapRegion use `>=`;
+  :332) while phases 1-2 and all of OverlapRegion use `>=`, and its best
+  score starts at -1 (`Align3.OVERLAP`; OverlapRegion scores as OverlapSam);
 * node names here are `NODE_<stub>_<i>_L<len>_D<dep>:F:R:` with NO '='
   (Overlap.cpp:1152) and stub = the SearchHash argv for rounds 1-3;
 * candidate lists (seed-hash voting) are computed per 100*Threads buffer
@@ -22,7 +23,7 @@ OverlapRegion.cpp (round 4, :176). Output-visible quirks preserved:
 
 from __future__ import annotations
 
-from .core import (Contig, align3, colaps_contigs, compress_strand,
+from .core import (Align3, Contig, colaps_contigs, compress_strand,
                    flip_strands, trim_low_coverage_ends)
 from ..io.fastq import FastqdRecord
 from ..ops import codec
@@ -85,99 +86,12 @@ def _prepare_search_list(A: str, ai: int, index, search_hash: int, act: int):
     return out
 
 
-def _align3_overlap(seqs, A: str, ai: int, min_percent: float,
-                    min_overlap: int, indexes, perfect_box):
-    """Overlap.cpp Align3 (169-357): candidate-list variant."""
-    best_score = 0
-    best_index = -1
-    best_overlap = 0
-    Alen = len(A)
-    for j in indexes:
-        B = seqs[j]
-        Blen = len(B)
-        if Blen > Alen:
-            window, longest, a_is_long = Alen, Blen, False
-        else:
-            window, longest, a_is_long = Blen, Alen, True
-        if window == 0:
-            continue
-        MM = window - (window * min_percent)
-        local_best, local_idx, local_ov = -1, -1, 0
-        a_off = b_off = 0
-        for off in range(0, longest - window + 1):
-            score = 0.0
-            for kk in range(window):
-                ca = A[kk + a_off]
-                cb = B[kk + b_off]
-                if ca == cb and ca != "N":
-                    score += 1
-                if (kk - score) > MM:
-                    score = -1.0
-                    break
-            if a_is_long:
-                a_off += 1
-            else:
-                b_off += 1
-            percent = score / window
-            if percent >= min_percent and local_best < score:
-                local_best = score
-                local_idx = j
-                local_ov = -off if a_is_long else off
-                if score == window:
-                    perfect_box[0] = True
-                    break
-        if not perfect_box[0]:
-            for ov in range(window - 1, min_overlap - 1, -1):
-                score = 0.0
-                kk = 0
-                brk = False
-                for kk in range(ov + 1):
-                    if A[Alen - ov + kk - 1] == B[kk] and B[kk] != "N":
-                        score += 1
-                    if (kk - score) > MM:
-                        score = -1.0
-                        brk = True
-                        break
-                kdiv = kk if brk else ov + 1
-                percent = score / kdiv if kdiv else -1
-                if percent >= min_percent and local_best < score:
-                    local_best = score
-                    local_idx = j
-                    local_ov = ov - Alen + 1
-                    if score == ov:
-                        break
-            for ov in range(window - 1, min_overlap - 1, -1):
-                score = 0.0
-                kk = 0
-                brk = False
-                for kk in range(ov + 1):
-                    if B[Blen - ov + kk - 1] == A[kk] and A[kk] != "N":
-                        score += 1
-                    if (kk - score) > MM:
-                        score = -1.0
-                        brk = True
-                        break
-                kdiv = kk if brk else ov + 1
-                percent = score / kdiv if kdiv else -1
-                # STRICT > in phase 3 (Overlap.cpp:332)
-                if percent > min_percent and local_best < score:
-                    local_best = score
-                    local_idx = j
-                    local_ov = Blen - ov - 1
-                    if score == ov:
-                        break
-        if local_best > best_score:
-            best_score = local_best
-            best_index = local_idx
-            best_overlap = local_ov
-    return best_score, best_overlap, best_index
-
-
 def overlap_round(records, node_stub: str, min_percent: float = 0.98,
                   min_overlap: int = 100, min_coverage: int = 1,
                   search_hash: int = 20, act: int = 1, trim_cutoff: int = 0,
                   buffer_size: int = 4000):
-    """One Overlap round over fastqd records -> contig fastqd records."""
+    """One Overlap round over fastqd records -> (contig fastqd records,
+    stats dict: rejects, and the Align3 calls and pairs scored)."""
     contigs, rejects = _load_fastqd(records, trim_cutoff, search_hash + 1)
     seqs = [c.seq for c in contigs]
     quals = [c.qual for c in contigs]
@@ -185,6 +99,7 @@ def overlap_round(records, node_stub: str, min_percent: float = 0.98,
     strands = [c.strand for c in contigs]
     index = _build_seed_index(seqs, search_hash)
     n = len(seqs)
+    align3 = Align3(Align3.OVERLAP)
     for b in range(0, n, buffer_size):
         hi = min(b + buffer_size, n)
         fwd_lists = {}
@@ -197,13 +112,12 @@ def overlap_round(records, node_stub: str, min_percent: float = 0.98,
             A, Aq = seqs[i], quals[i]
             Ad, As = depths[i], strands[i]
             perfect = [False]
-            score, kk, best = _align3_overlap(seqs, A, i, min_percent,
-                                              min_overlap, fwd_lists[i], perfect)
+            score, kk, best = align3(seqs, A, fwd_lists[i], min_percent,
+                                     min_overlap, perfect)
             if not perfect[0]:
                 revA = codec.revcomp_str(A)
-                rscore, rkk, rbest = _align3_overlap(seqs, revA, i, min_percent,
-                                                     min_overlap, rev_lists[i],
-                                                     perfect)
+                rscore, rkk, rbest = align3(seqs, revA, rev_lists[i],
+                                            min_percent, min_overlap, perfect)
                 if rscore > score:
                     A, Aq = revA, Aq[::-1]
                     Ad = Ad[::-1]
@@ -219,31 +133,33 @@ def overlap_round(records, node_stub: str, min_percent: float = 0.98,
             depths[best] = merged.depth
             strands[best] = merged.strand
             seqs[i] = "moved"
-    return _emit(seqs, quals, depths, strands, node_stub, min_coverage), rejects
+    return (_emit(seqs, quals, depths, strands, node_stub, min_coverage),
+            _stats(rejects, align3))
 
 
 def overlap_region(records, node_stub: str, min_percent: float = 0.98,
                    min_overlap: int = 50, min_coverage: int = 5,
                    trim_cutoff: int = 1):
-    """OverlapRegion: final all-vs-all greedy pass (round 4)."""
+    """OverlapRegion: final all-vs-all greedy pass (round 4); returns as
+    overlap_round."""
     contigs, rejects = _load_fastqd(records, trim_cutoff, 90)
     seqs = [c.seq for c in contigs]
     quals = [c.qual for c in contigs]
     depths = [c.depth for c in contigs]
     strands = [c.strand for c in contigs]
     n = len(seqs)
+    align3 = Align3(Align3.OVERLAP_SAM)
     for i in range(n):
         A, Aq = seqs[i], quals[i]
         Ad, As = depths[i], strands[i]
         perfect = [False]
         j_range = range(i + 1, n)
-        score, kk, best = align3(seqs, quals, A, Aq, i, min_percent,
-                                 min_overlap, j_range, perfect)
+        score, kk, best = align3(seqs, A, j_range, min_percent, min_overlap,
+                                 perfect)
         if not perfect[0]:
             revA = codec.revcomp_str(A)
-            rscore, rkk, rbest = align3(seqs, quals, revA, Aq[::-1], i,
-                                        min_percent, min_overlap, j_range,
-                                        perfect)
+            rscore, rkk, rbest = align3(seqs, revA, j_range, min_percent,
+                                        min_overlap, perfect)
             if rscore > score:
                 A, Aq = revA, Aq[::-1]
                 Ad = Ad[::-1]
@@ -259,7 +175,13 @@ def overlap_region(records, node_stub: str, min_percent: float = 0.98,
         depths[best] = merged.depth
         strands[best] = merged.strand
         seqs[i] = "moved"
-    return _emit(seqs, quals, depths, strands, node_stub, min_coverage), rejects
+    return (_emit(seqs, quals, depths, strands, node_stub, min_coverage),
+            _stats(rejects, align3))
+
+
+def _stats(rejects: int, align3: Align3) -> dict:
+    return {"rejects": rejects, "align3_queries": align3.queries,
+            "align3_pairs": align3.pairs}
 
 
 def _emit(seqs, quals, depths, strands, node_stub, min_coverage):

@@ -10,7 +10,7 @@ parses for strand-bias (`:F:R:`).
 
 from __future__ import annotations
 
-from .core import (Contig, align3, colaps_contigs, compress_strand,
+from .core import (Align3, Contig, colaps_contigs, compress_strand,
                    count_hashes, flip_strands, num_low_q, replace_low_q,
                    trim_n_ends)
 from ..io.fastq import FastqdRecord
@@ -29,7 +29,8 @@ def overlap_sam(records, hashlist_strs, node_stub: str,
                 min_percent: float = 0.95, min_overlap: int = 20,
                 min_coverage: int = 1, k: int | None = None):
     """records: iterable with .flag/.seq/.qual (SAM order). Returns
-    (fastqd contig records, stats dict)."""
+    (fastqd contig records, stats dict: rejects, aligned and unaligned
+    reads, and the Align3 calls and query-candidate pairs scored)."""
     if not hashlist_strs:
         raise ValueError("empty HashList")
     k = k or len(hashlist_strs[0])
@@ -64,21 +65,20 @@ def overlap_sam(records, hashlist_strs, node_stub: str,
             strands.append(sc); depths.append([1] * len(s2))
 
     n = len(seqs)
+    align3 = Align3(Align3.OVERLAP_SAM)
     for i in range(n):
         A, Aq = seqs[i], quals[i]
         Ad, As = depths[i], strands[i]
         j_range = range(i + 1, min(i + 11, n))
         perfect = [False]
-        score, kk, best = align3(seqs, quals, A, Aq, i, min_percent,
-                                 min_overlap, j_range, perfect)
+        score, kk, best = align3(seqs, A, j_range, min_percent, min_overlap,
+                                 perfect)
         if not perfect[0]:
             revA = codec.revcomp_str(A)
-            revAq = Aq[::-1]
-            rscore, rkk, rbest = align3(seqs, quals, revA, revAq, i,
-                                        min_percent, min_overlap, j_range,
-                                        perfect)
+            rscore, rkk, rbest = align3(seqs, revA, j_range, min_percent,
+                                        min_overlap, perfect)
             if rscore > score:
-                A, Aq = revA, revAq
+                A, Aq = revA, Aq[::-1]
                 Ad = Ad[::-1]
                 As = flip_strands(As)
                 score, kk, best = rscore, rkk, rbest
@@ -110,4 +110,6 @@ def overlap_sam(records, hashlist_strs, node_stub: str,
             name = f"NODE_{node_stub}_{i}_L={len(un_seqs[i])}_D-1"
             out.append(FastqdRecord(name, un_seqs[i], un_quals[i],
                                     un_strands[i], list(un_depths[i])))
-    return out, {"rejects": rejects, "aligned": n, "unaligned": len(un_seqs)}
+    return out, {"rejects": rejects, "aligned": n, "unaligned": len(un_seqs),
+                 "align3_queries": align3.queries,
+                 "align3_pairs": align3.pairs}

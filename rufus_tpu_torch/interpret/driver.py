@@ -9,24 +9,47 @@ inversion / LastDitch cleanup passes 6416-7725 (`sv_cleanup.py`).
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import os
 import time
 
-from ..ops import codec
+import numpy as np
+
+from ..ops import _build, codec
 from .calls import parse_mutations
 from .model import DepthModel
 from .samread import Context, MobRead, SamRead
 
 
-def _load_counts_file(path: str, into: dict, h2l):
+def _load_counts_file(path: str, into: dict):
+    """A k-mer count pull ("<k-mer> <count>" lines) into `into`, each line's
+    count under Context.h2l of its k-mer and then of the k-mer's reverse
+    complement (codec.revcomp_str), line by line: lines split on " ", those
+    of one field skipped, int() of the second field. Parsed and packed in
+    the port's native host library (`count_pulls`); a k-mer whose packing
+    needs more than 64 bits (bases past the 32nd) raises ValueError."""
     with open(path) as f:
-        for line in f:
-            parts = line.split(" ")
-            if len(parts) < 2:
-                continue
-            v = int(parts[1])
-            into[h2l(parts[0])] = v
-            into[h2l(codec.revcomp_str(parts[0]))] = v
+        text = f.read()
+    raw = text.encode()
+    cap = text.count("\n") + 1
+    keys = np.empty(2 * cap, np.uint64)
+    vals = np.empty(cap, np.int64)
+    err = np.zeros(3, np.int64)
+    fn = _build.host_function("count_pulls", ctypes.c_longlong,
+                              (ctypes.c_void_p, ctypes.c_longlong,
+                               ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_void_p))
+    n = fn(raw, len(raw), keys.ctypes.data, vals.ctypes.data, err.ctypes.data)
+    if n < 0:
+        line = raw[err[0]:err[1]].decode()
+        if err[2]:
+            int(line.split(" ")[1])  # int()'s own error, where it has one
+            raise ValueError(f"{path}: a count outside int64 or not in "
+                             f"ASCII digits: {line!r}")
+        raise ValueError(f"{path}: a k-mer too long to pack in 64 bits: "
+                         f"{line!r}")
+    into.update(zip(keys[:2 * n].tolist(), np.repeat(vals[:n], 2).tolist()))
 
 
 def load_hashlist(path: str):
@@ -156,13 +179,18 @@ def run_interpret(sam_lines, ref, dist_path: str, hashlist_path: str,
                   subject_alt_path: str, subject_ref_path: str,
                   exclude_path: str | None = None, mob_sam_path: str | None = None,
                   min_map_qual: int = 10, max_variant_size: int = 1000,
-                  file_date: int | None = None, seg_threshold: int | None = None):
+                  file_date: int | None = None, seg_threshold: int | None = None,
+                  span=None):
     """Full interpret run. sam_lines: iterable of headerless-or-not SAM
     text lines (the `samtools view | AddSA | grep -v chrUn` stream plus
-    optional @ header lines for ##contig emission)."""
-    model = DepthModel.load(dist_path)
-    if not model.is_exome:
-        model.process_high_low()
+    optional @ header lines for ##contig emission). `span(name)`, a
+    context manager (the pipeline's StageTimer.span), times the depth
+    model's load ("model") and the count pulls' ("pulls")."""
+    span = span or (lambda name: contextlib.nullcontext())
+    with span("model"):
+        model = DepthModel.load(dist_path)
+        if not model.is_exome:
+            model.process_high_low()
     mobs = load_mob_sam(mob_sam_path) if mob_sam_path else {}
 
     hash_map, k = load_hashlist(hashlist_path)
@@ -176,22 +204,24 @@ def run_interpret(sam_lines, ref, dist_path: str, hashlist_path: str,
         # path runs with 1000 (Overlap.pacbio.sh final interpret call).
         ctx.seg_threshold = seg_threshold
         ctx.seg_threshold_cigar = seg_threshold
-    for alt_p, ref_p in zip(parent_alt_paths, parent_ref_paths):
-        m: dict[int, int] = {}
-        _load_counts_file(alt_p, m, ctx.h2l)
-        _load_counts_file(ref_p, m, ctx.h2l)
-        ctx.parent_hashes.append(m)
-        start = alt_p.find("overlap.asembly.hash.fastq.")
-        end = alt_p.find(".generator.Jhash")
-        ctx.par_names.append(alt_p[start + 27 : end] if start >= 0 and end >= 0
-                             else f"Parent{len(ctx.par_names)}")
-    _load_counts_file(subject_alt_path, ctx.mutant_hashes, ctx.h2l)
-    _load_counts_file(subject_ref_path, ctx.mutant_hashes, ctx.h2l)
-    if exclude_path:
-        try:
-            _load_counts_file(exclude_path, ctx.exclude_hashes, ctx.h2l)
-        except (OSError, IndexError):
-            pass
+    with span("pulls"):
+        for alt_p, ref_p in zip(parent_alt_paths, parent_ref_paths):
+            m: dict[int, int] = {}
+            _load_counts_file(alt_p, m)
+            _load_counts_file(ref_p, m)
+            ctx.parent_hashes.append(m)
+            start = alt_p.find("overlap.asembly.hash.fastq.")
+            end = alt_p.find(".generator.Jhash")
+            ctx.par_names.append(alt_p[start + 27 : end]
+                                 if start >= 0 and end >= 0
+                                 else f"Parent{len(ctx.par_names)}")
+        _load_counts_file(subject_alt_path, ctx.mutant_hashes)
+        _load_counts_file(subject_ref_path, ctx.mutant_hashes)
+        if exclude_path:
+            try:
+                _load_counts_file(exclude_path, ctx.exclude_hashes)
+            except (OSError, IndexError):
+                pass
 
     vcf_path = out_stub + ".vcf"
     bed_path = out_stub + ".vcf.bed"

@@ -13,6 +13,10 @@ Quirks preserved:
   appends the k=0 row values once more (5143-5160);
 * GetHighAndLowForDist reads one past the vector end in its third loop —
   we clamp instead (only affects `cumulative` after the bound check);
+* the .dist's numeric rows and GetHighAndLowForDist run in the port's
+  native host library (``native/interpret.cpp``): strtod rounds as
+  float() does, and each column's total is Python's own sum(), whose
+  compensated float sum a plain C loop would not reproduce;
 * BayseanGenotyper's `else int C = PickDepthAverage(...)` SHADOWS the
   outer C (1738), leaving the reported depth uninitialized in fresh
   builds; the published testRun golden shows the intended value, so we
@@ -23,9 +27,16 @@ Quirks preserved:
 
 from __future__ import annotations
 
-import math
+import ctypes
+from array import array
+
+import numpy as np
+
+from ..ops import _build
 
 INT_MIN = -2147483648
+
+_P, _I64 = ctypes.c_void_p, ctypes.c_longlong
 
 
 class DepthModel:
@@ -42,11 +53,12 @@ class DepthModel:
         m = cls()
         try:
             with open(path) as f:
-                lines = f.read().split("\n")
+                text = f.read()
         except OSError:
             # ProcessDist tolerates a missing model file (5117-5126): the
             # exome path never produces a .dist, leaving DistGlobal empty
             return m
+        lines = text.split("\n", 7)
         if lines[0] == "exome":
             m.is_exome = True
             return m
@@ -60,51 +72,62 @@ class DepthModel:
         # depth-0 entry and the trailing tab-led line appending the k=0 row
         # once more — all exactly as ProcessDist builds it (5139-5160).
         first = lines[6].split("\t")
-        T = len(first)
-        m.dist = [[] for _ in range(T - 1)]
-        for i in range(1, T):
-            if i < T - 1:
-                m.dist[i].append(float(first[i]))
-        for line in lines[7:]:
-            if not line:
-                continue
-            temp = line.split("\t")
-            for i in range(1, len(temp)):
-                if i - 1 < len(m.dist) and temp[i] != "":
-                    m.dist[i - 1].append(float(temp[i]))
+        m.dist = _dist_columns(len(first) - 1,
+                               [float(v) for v in first[1:-1]],
+                               lines[7] if len(lines) > 7 else "")
         m.prior = [0.5, 0.5] + [1.0 / i for i in range(2, len(m.dist))]
         return m
 
     def process_high_low(self):
-        self.limits = [self._high_low(c, 0.997) for c in range(len(self.dist))]
+        self.limits = _high_low(self.dist, 0.997)
         if len(self.limits) > 3:
             self.dist1x_cutoff = self.limits[2][1]
         else:
             self.dist1x_cutoff = 100000
 
-    def _high_low(self, copy: int, percent: float):
-        d = self.dist[copy]
-        n = len(d)
-        if n == 0:
-            return (0, 0)
-        s = sum(d)
-        max_k = max(range(n), key=lambda i: d[i])
-        cumulative = d[max_k]
-        lower = upper = max_k
-        while lower > 0 and upper < n and (s == 0 or cumulative / s < percent):
-            lower -= 1
-            upper += 1
-            cumulative += d[lower]
-            if upper < n:
-                cumulative += d[upper]
-        while lower > 0 and (s == 0 or cumulative / s < percent):
-            lower -= 1
-            cumulative += d[lower]
-        while upper < n and (s == 0 or cumulative / s < percent):
-            upper += 1
-            if upper < n:
-                cumulative += d[upper]
-        return (lower, upper)
+
+def _dist_columns(ncols: int, head: list, text: str) -> list[list[float]]:
+    """DistGlobal's `ncols` columns (T - 1, T the first data row's fields)
+    from that row's values `head` (its fields 1..T-2) and the rows after
+    it, `text`: column 0, then column c >= 1 led by head[c - 1]; field
+    i >= 1 of each later non-empty row, when not empty and i - 1 < ncols,
+    appended to column i - 1 as float() reads it (native `dist_columns`)."""
+    fn = _build.host_function("dist_columns", ctypes.c_int,
+                              (_P, _I64, _I64, _P, _P, _P))
+    raw = text.encode()
+    counts = np.zeros(ncols, np.int64)
+    err = np.zeros(2, np.int64)
+    fn(raw, len(raw), ncols, counts.ctypes.data, None, err.ctypes.data)
+    counts[1:] += 1
+    ends = np.cumsum(counts)
+    starts = ends - counts
+    out = np.empty(int(ends[-1]) if ncols else 0, np.float64)
+    out[starts[1:]] = head
+    cursor = starts.copy()
+    cursor[1:] += 1
+    if fn(raw, len(raw), ncols, cursor.ctypes.data, out.ctypes.data,
+          err.ctypes.data):
+        bad = raw[err[0]:err[1]].decode()
+        raise ValueError(f"could not convert string to float: {bad!r}")
+    return [out[s:e].tolist() for s, e in zip(starts.tolist(), ends.tolist())]
+
+
+def _high_low(dist, percent: float) -> list[tuple[int, int]]:
+    """GetHighAndLowForDist of each column (5181-5233, native `high_low`):
+    from the column's first maximum, widen both ways, then down, then up,
+    until the mass covered reaches `percent` of the column's sum."""
+    fn = _build.host_function("high_low", ctypes.c_int,
+                              (_P, _P, _P, _I64, ctypes.c_double, _P))
+    starts = np.zeros(len(dist) + 1, np.int64)
+    np.cumsum(np.array([len(d) for d in dist], np.int64), out=starts[1:])
+    flat = array("d")
+    for d in dist:
+        flat.fromlist(d)
+    sums = np.array([sum(d) for d in dist], np.float64)
+    out = np.empty((len(dist), 2), np.int64)
+    fn(flat.buffer_info()[0], starts.ctypes.data, sums.ctypes.data,
+       len(dist), percent, out.ctypes.data)
+    return [(lo, hi) for lo, hi in out.tolist()]
 
 
 def pick_depth_somatic(model: DepthModel, counts) -> int:

@@ -10,9 +10,11 @@ which keeps a cold build to seconds.
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 ``check`` turns a non-zero code into an exception.
 
-The host decoders (``native/*.cpp``: BGZF/BAM and FASTQ) are one library,
-``librufus_torch_io.so``, built the same way by the host compiler
-(``build_native``); a failed build raises with the compiler's output.
+The host code (``native/*.cpp``: the BGZF/BAM and FASTQ decoders, the
+assembler's Align3 scoring, interpret's depth-model and pull loads) is one
+library, ``librufus_torch_io.so``, built the same way by the host compiler
+(``build_native``) and typed by ``host_function``; a failed build raises
+with the compiler's output.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ NATIVE_DIR = os.path.join(PKG_DIR, "native")
 BUILD_ROOT = os.path.join(os.path.dirname(PKG_DIR), "build", "rufus_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
+# no fused multiply-add: the host library's doubles round as Python's do
+HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off"]
 HOST_LIBS = ["-lz", "-lpthread"]
 
 _lock = threading.Lock()
@@ -117,8 +120,8 @@ def build_native() -> str:
         os.makedirs(out_dir, exist_ok=True)
         cxx = os.environ.get("CXX") or shutil.which("g++")
         if not cxx:
-            raise RuntimeError("no C++ compiler: the native decoders need g++ "
-                               "(or $CXX) and zlib")
+            raise RuntimeError("no C++ compiler: the native host code needs "
+                               "g++ (or $CXX) and zlib")
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)
         p = subprocess.run([cxx, *HOST_FLAGS, *sources, "-o", tmp, *HOST_LIBS],
@@ -129,6 +132,16 @@ def build_native() -> str:
                                f"{p.stdout}{p.stderr}")
         os.replace(tmp, so)
     return so
+
+
+@functools.lru_cache(maxsize=None)
+def host_function(name: str, restype, argtypes: tuple):
+    """The C entry point `name` of ``librufus_torch_io.so`` (built on first
+    use), typed."""
+    fn = getattr(ctypes.CDLL(build_native()), name)
+    fn.restype = restype
+    fn.argtypes = list(argtypes)
+    return fn
 
 
 @functools.lru_cache(maxsize=None)

@@ -991,7 +991,10 @@ class RufusPipeline:
         OverlapRegion (or, with assembly_speed "veryfast", OverlapSam and
         one round on the pairs with |TLEN| > 150), then the depth, FASTQ and
         HashList-count annotations. Host code; the rounds' buffer is
-        100 * threads reads, as in the reference."""
+        100 * threads reads, as in the reference. Spans time OverlapSam
+        ("overlap_sam"), the rounds ("rounds") and OverlapRegion ("region");
+        `rec` gets the native Align3 scorer's calls and query-candidate
+        pairs (`align3_queries`, `align3_pairs`)."""
         cfg = self.cfg
         rec = {} if rec is None else rec
         ns = cfg.name_stub
@@ -1007,23 +1010,36 @@ class RufusPipeline:
             records.append(SamLikeRec(int(f[1]), f[9], f[10], int(f[8])))
         strs, cnts = hio.read_hashlist(hl_path)
         threads = max(cfg.threads, 1)
+        span = self.trace.span
+        stats = []
         if cfg.assembly_speed == "veryfast":
             # long-insert pairs only (Overlap.shorter.sh:98, awk on $9);
             # single-end records all carry TLEN 0 and are all kept
             if any(r.flag & 0x1 for r in records):
                 records = [r for r in records if abs(r.tlen) > 150]
-            r0, _ = overlap_sam(records, strs, ns, 0.99, 25, 3, cfg.k)
-            r4, _ = overlap_round(r0, ns, 0.99, 75, 5, 15, 1, 1,
-                                  buffer_size=100 * threads)
+            with span("overlap_sam"):
+                r0, st = overlap_sam(records, strs, ns, 0.99, 25, 3, cfg.k)
+            stats.append(st)
+            with span("rounds"):
+                r4, st = overlap_round(r0, ns, 0.99, 75, 5, 15, 1, 1,
+                                       buffer_size=100 * threads)
+            stats.append(st)
         else:
-            r0, _ = overlap_sam(records, strs, ns, 0.95, 20, 1, cfg.k)
-            r1, _ = overlap_round(r0, "20", 0.98, 100, 1, 20, 1, 0,
-                                  buffer_size=100 * threads)
-            r2, _ = overlap_round(r1, "20", 0.98, 75, 2, 20, 1, 1,
-                                  buffer_size=100 * threads)
-            r3, _ = overlap_round(r2, "20", 0.98, 50, 2, 20, 1, 1,
-                                  buffer_size=100 * threads)
-            r4, _ = overlap_region(r3, ns, 0.98, 50, 5, 1)
+            with span("overlap_sam"):
+                r, st = overlap_sam(records, strs, ns, 0.95, 20, 1, cfg.k)
+            stats.append(st)
+            with span("rounds"):
+                for min_overlap, min_cov, trim in ((100, 1, 0), (75, 2, 1),
+                                                   (50, 2, 1)):
+                    r, st = overlap_round(r, "20", 0.98, min_overlap,
+                                          min_cov, 20, 1, trim,
+                                          buffer_size=100 * threads)
+                    stats.append(st)
+            with span("region"):
+                r4, st = overlap_region(r, ns, 0.98, 50, 5, 1)
+            stats.append(st)
+        rec["align3_queries"] = sum(st["align3_queries"] for st in stats)
+        rec["align3_pairs"] = sum(st["align3_pairs"] for st in stats)
         if not r4:
             raise RuntimeError("assembly produced no contigs")
         rec["contigs"] = len(r4)
@@ -1211,7 +1227,7 @@ class RufusPipeline:
             cfg.wpath(cfg.name_stub + ".overlap.hashcount.fastq.bam"),
             inputs["par_alt"], inputs["par_ref"], inputs["subj_alt"],
             inputs["subj_ref"], inputs["rep_ref"], inputs["mob_sam"],
-            max_variant_size=cfg.max_allele_size, **kw)
+            max_variant_size=cfg.max_allele_size, span=self.trace.span, **kw)
 
     def stage_interpret(self, inputs) -> str:
         """Interpret with the short-read settings (-mQ 10), on the first

@@ -10,6 +10,7 @@ for byte).
 
 import os
 
+import numpy as np
 import pytest
 
 from rufus_tpu.io import fastq as jfq
@@ -175,3 +176,169 @@ def test_from_strings_matches_jax(k):
     assert got.keys.tolist() == want.keys.tolist()
     assert got.counts.tolist() == want.counts.tolist()
     assert len(got) > 0
+
+
+# -- the native Align3 scorer -------------------------------------------------
+
+def _mutate(rng, s, rate, alphabet="ACGTN"):
+    return "".join(str(rng.choice(list(alphabet))) if rng.random() < rate
+                   else c for c in s)
+
+
+def _align3_cases(kind, seed):
+    """(seqs, A, candidate indices, min_percent, min_overlap, perfect flag
+    on entry) of one case family; every family mixes longer, shorter and
+    equal-length candidates."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    if kind == "reads":
+        # position-sorted reads of one genome with N and substitutions:
+        # overlaps at every shift, at OverlapSam's and the rounds' limits
+        g = _mutate(rng, "".join(rng.choice(list("ACGT"), 3000)), 0.01)
+        for _ in range(40):
+            at = int(rng.integers(0, 2000))
+            A = _mutate(rng, g[at:at + int(rng.integers(60, 300))], 0.02)
+            seqs = [A]
+            for _ in range(int(rng.integers(1, 12))):
+                s = at + int(rng.integers(-200, 200))
+                seqs.append(_mutate(rng, g[max(s, 0):max(s, 0) + int(
+                    rng.integers(40, 400))], float(rng.choice([0, 0.01,
+                                                               0.05]))))
+            cases.append((seqs, A, list(range(1, len(seqs))),
+                          float(rng.choice([0.95, 0.98, 0.99])),
+                          int(rng.choice([20, 50, 75, 100])), False))
+    elif kind == "tiny":
+        # short strings over a small alphabet: empty reads, ties, scores
+        # exactly at min_percent, overlaps down to 0 and below
+        for _ in range(400):
+            seqs = ["".join(rng.choice(list("ACN"), int(rng.integers(0, 10))))
+                    for _ in range(int(rng.integers(2, 7)))]
+            cases.append((seqs, seqs[0], list(range(1, len(seqs))),
+                          float(rng.choice([0.0, 0.5, 0.6, 0.75, 1.0])),
+                          int(rng.choice([-2, -1, 0, 1, 3])), False))
+    elif kind == "perfect":
+        # one candidate holds A whole, part-way through the list; the flag
+        # is carried into the reverse call, and later candidates still run
+        # phase 1
+        for _ in range(40):
+            g = "".join(rng.choice(list("ACGT"), 600))
+            A = g[200:200 + int(rng.integers(60, 150))]
+            seqs = [A] + [_mutate(rng, g[int(o):int(o) + 250], 0.02)
+                          for o in rng.integers(0, 350, 6)]
+            seqs.insert(int(rng.integers(1, len(seqs) + 1)),
+                        g[int(rng.integers(100, 200)):][:300])
+            cases.append((seqs, A, list(range(1, len(seqs))), 0.95, 20,
+                          bool(rng.random() < 0.2)))
+    elif kind == "abort":
+        # min_percent above 1: MM < 0, so every comparison aborts at kk 0;
+        # at 1.0 the first mismatch aborts
+        for _ in range(60):
+            seqs = ["".join(rng.choice(list("ACGTN"), int(n)))
+                    for n in rng.integers(1, 40, 5)]
+            cases.append((seqs, seqs[0], [1, 2, 3, 4],
+                          float(rng.choice([1.0, 1.5, 3.0])), 1, False))
+    elif kind == "moved":
+        # "moved" entries and characters outside ACGTN among the candidates
+        for _ in range(60):
+            seqs = ["".join(rng.choice(list("ACGTNé-"), int(n)))
+                    for n in rng.integers(3, 30, 6)] + ["moved"]
+            A = seqs[0]
+            cases.append((seqs, A, [6] + list(range(1, 6)), 0.5, 2, False))
+    return cases
+
+
+def _both_ways(score, seqs, A, cands, mp, mo, perfect):
+    """A caller's forward call, then, unless it found a perfect match, the
+    reverse-complement call with the same flag: (forward, reverse, flag)."""
+    from rufus_tpu_torch.ops import codec
+
+    box = [perfect]
+    fwd = score(seqs, A, cands, mp, mo, box)
+    rev = None
+    if not box[0]:
+        rev = score(seqs, codec.revcomp_str(A), cands, mp, mo, box)
+    return fwd, rev, box[0]
+
+
+@pytest.mark.parametrize("tool", ["OverlapSam", "Overlap"])
+@pytest.mark.parametrize("kind", ["reads", "tiny", "perfect", "abort",
+                                  "moved"])
+def test_native_align3_matches_jax(kind, tool):
+    """The native Align3 against the JAX package's align3 (OverlapSam,
+    OverlapRegion) and _align3_overlap (the Overlap rounds) on each case
+    family, forward then reverse with the shared perfect-match flag:
+    score (its type too: the integer 0 until a candidate wins), overlap,
+    index and flag."""
+    from rufus_tpu.assembly import core as jcore
+    from rufus_tpu.assembly import overlap_rounds as jrounds
+    from rufus_tpu_torch.assembly.core import Align3
+
+    if tool == "OverlapSam":
+        port = Align3(Align3.OVERLAP_SAM)
+
+        def want(seqs, A, cands, mp, mo, box):
+            return jcore.align3(seqs, seqs, A, A, 0, mp, mo, cands, box)
+    else:
+        port = Align3(Align3.OVERLAP)
+
+        def want(seqs, A, cands, mp, mo, box):
+            return jrounds._align3_overlap(seqs, A, 0, mp, mo, cands, box)
+    found = perfect = above_one = 0
+    for seqs, A, cands, mp, mo, flag in _align3_cases(kind, 17):
+        got = _both_ways(port, list(seqs), A, cands, mp, mo, flag)
+        exp = _both_ways(want, list(seqs), A, cands, mp, mo, flag)
+        assert repr(got) == repr(exp), (seqs, A, cands, mp, mo, flag)
+        found += exp[0][2] >= 0
+        perfect += exp[2] and not flag
+        above_one += mp > 1 and (exp[0][2] >= 0 or (exp[1] or (0, 0, -1))[2]
+                                 >= 0)
+    assert port.queries > 0 and port.pairs >= port.queries
+    if kind in ("reads", "tiny", "perfect"):
+        assert found > 0
+    if kind == "perfect":
+        assert perfect > 0
+    assert above_one == 0  # nothing passes a min_percent above 1
+
+
+def test_native_align3_variants_differ():
+    """The tiny family holds cases where the two tools' phase 3 (>= against
+    >) and starting best (0 against -1) give different results, so both
+    comparisons of the parametrised test above are exercised."""
+    from rufus_tpu.assembly import core as jcore
+    from rufus_tpu.assembly import overlap_rounds as jrounds
+
+    differ = 0
+    for seqs, A, cands, mp, mo, flag in _align3_cases("tiny", 17):
+        a = jcore.align3(seqs, seqs, A, A, 0, mp, mo, cands, [flag])
+        b = jrounds._align3_overlap(seqs, A, 0, mp, mo, cands, [flag])
+        differ += repr(a) != repr(b)
+    assert differ > 0
+
+
+@pytest.mark.parametrize("speed", ["full", "veryfast"])
+def test_stage_assemble_records_align3(tmp_path, speed):
+    """stage_assemble's record counts the native scorer's calls and pairs,
+    and the stage's spans time OverlapSam, the rounds and OverlapRegion."""
+    from rufus_tpu_torch.utils.trace import StageTimer
+
+    sam = tmp_path / "in.sam"
+    sam.write_text(_read(os.path.join(GOLD, "input.sam")))
+    cfg = RufusConfig(subject="Child.bam", k=25, workdir=str(tmp_path / "w"),
+                      assembly_speed=speed, threads=2, device="cpu")
+    pipe = RufusPipeline(cfg)
+    pipe.trace = StageTimer()
+    with pipe.trace.stage("assemble") as rec:
+        if speed == "veryfast":
+            with pytest.raises(RuntimeError, match="no contigs"):
+                pipe.stage_assemble(str(sam), HASHLIST, rec)
+        else:
+            pipe.stage_assemble(str(sam), HASHLIST, rec)
+    rec = pipe.trace.stages[-1]
+    spans = {"overlap_sam", "rounds"} | ({"region"} if speed == "full"
+                                        else set())
+    assert set(rec["spans"]) == spans
+    if speed == "full":
+        assert rec["align3_queries"] > 0
+        assert rec["align3_pairs"] >= rec["align3_queries"]
+    else:  # the golden SAM's TLENs are 0: veryfast keeps no pair
+        assert rec["align3_queries"] == rec["align3_pairs"] == 0

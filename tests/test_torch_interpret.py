@@ -138,6 +138,140 @@ def test_depth_model_and_genotyper_match_jax(tmp_path, kind):
             jmodel.parse_genotype(alt, ref)
 
 
+def _write_dist(path, rows, head=("3", "4", "17053", "25", "1\t2\t3", "27.0"),
+                newline="\n"):
+    """A .dist: ModelDist's six header lines, then the rows as given."""
+    with open(path, "w", newline="") as f:
+        f.write(newline.join(list(head) + list(rows)))
+
+
+def _same_load(path):
+    """DepthModel.load then, unless exome, process_high_low in both
+    packages: every field equal, or the same exception."""
+    out = []
+    for mod in (pmodel, jmodel):
+        try:
+            m = mod.DepthModel.load(path)
+            if m.dist and not m.is_exome:
+                m.process_high_low()
+            out.append(repr(vars(m)))
+        except (ValueError, IndexError) as e:
+            out.append(f"{type(e).__name__}: {e}")
+    if out[0] != out[1]:  # shown where they part, not as a diff of 90 MB
+        at = next((i for i, (a, b) in enumerate(zip(*out)) if a != b),
+                  min(map(len, out)))
+        pytest.fail(f"port {out[0][max(at - 60, 0):at + 60]!r}\n"
+                    f"jax  {out[1][max(at - 60, 0):at + 60]!r}")
+    return out[0]
+
+
+def test_depth_model_full_size_matches_jax(tmp_path):
+    """A .dist of the full traffic's size (10,001 rows of 448 columns, most
+    fields "0", the rest in ModelDist's %g and other float spellings, each
+    row tab-ended) and its trailing tab-led row: load and high/low."""
+    rng = np.random.default_rng(3)
+    vals = rng.random((10001, 448)) ** 8
+    vals[rng.random(vals.shape) < 0.9] = 0.0
+    fmt = rng.integers(0, 3, vals.shape)
+    rows = []
+    for i in range(10001):
+        cells = ["0" if v == 0 else (f"{v:g}", repr(v), f"{v:.3e}")[f]
+                 for v, f in zip(vals[i].tolist(), fmt[i].tolist())]
+        rows.append(f"{i}\t" + "\t".join(cells) + "\t")
+    rows.append("\t" + rows[0].split("\t", 1)[1])
+    path = str(tmp_path / "full.dist")
+    _write_dist(path, rows + [""])
+    got = _same_load(path)
+    assert got.startswith("{'dist': [[") and "'limits': [(" in got
+    # 448 columns of values and the empty field after each row's last tab
+    assert len(pmodel.DepthModel.load(path).dist) == 449
+
+
+_SPECIAL = ["inf", "-Infinity", "NaN", "+nan", "1_000.5", " 2.5 ", "1e400",
+            "4.9e-324", "2.2250738585072014e-308", "1.7976931348623157e308",
+            "0.1", "3.14159265358979323846264338327950288419716939937510",
+            ".5", "5.", "-0", "+0.0e-0", "7E+2", "1e1_0", "9007199254740993",
+            "123456789012345678901234567890e-40", "0.30000000000000004",
+            "1e23", "8.98846567431158e307", "\x0b3\x0c", "00012.50"]
+
+
+@pytest.mark.parametrize("kind", [
+    "empty_fields", "tab_led_rows", "special_floats", "crlf", "one_column",
+    "no_columns", "ignored_beyond", "bad_first_row", "bad_later_row",
+    "bad_spelling", "short_file"])
+def test_depth_model_quirks_match_jax(tmp_path, kind):
+    """DepthModel.load and process_high_low on crafted .dist files: empty
+    fields and rows of other lengths, tab-led rows, float() spellings,
+    CRLF line ends, one or no column, fields past the columns (never
+    parsed, so never an error), bad fields in the first and a later row,
+    and a file too short to hold a data row: the same fields or the same
+    error in both packages."""
+    rng = np.random.default_rng(len(kind))
+    pick = lambda n: [str(v) for v in rng.random(n).round(4)]  # noqa: E731
+    rows = ["0\t" + "\t".join(pick(6)) + "\t"]
+    rows += [f"{i}\t" + "\t".join(pick(6)) + "\t" for i in range(1, 40)]
+    newline = "\n"
+    if kind == "empty_fields":
+        rows[3] = "3\t\t\t0.5\t\t"
+        rows[5] = "5\t0.25"
+        rows[7] = ""
+        rows[9] = "9\t1\t2\t3\t4\t5\t6\t7\t8\t9\t10"
+    elif kind == "tab_led_rows":
+        rows += ["\t" + rows[0].split("\t", 1)[1]] * 2
+    elif kind == "special_floats":
+        for i, v in enumerate(_SPECIAL):
+            rows[1 + i] = f"{i}\t{v}\t{v}\t0\t{v}\t1\t{v}\t"
+    elif kind == "crlf":
+        newline = "\r\n"
+    elif kind == "one_column":
+        rows = [r.split("\t")[0] + "\t" + r.split("\t")[1] for r in rows]
+    elif kind == "no_columns":
+        rows = [str(i) for i in range(40)]
+    elif kind == "ignored_beyond":
+        rows[4] += "\tnot-a-number\t\tx"
+    elif kind == "bad_first_row":
+        rows[0] = "0\t0.5\t\t1\t"
+    elif kind == "bad_later_row":
+        rows[6] = "6\t0.5\t1.2.3\t1\t"
+    elif kind == "bad_spelling":
+        rows[6] = "6\t0x1p3\t1\t"  # strtod reads hex; float() does not
+    elif kind == "short_file":
+        rows = []
+    path = str(tmp_path / "q.dist")
+    _write_dist(path, rows, newline=newline)
+    got = _same_load(path)
+    bad = kind.startswith("bad_") or kind == "short_file"
+    assert got.startswith(("ValueError", "IndexError")) == bad
+
+
+@pytest.mark.parametrize("kind", ["compensated", "ties_and_zeros",
+                                  "nonfinite"])
+def test_high_low_matches_jax(kind):
+    """process_high_low on columns set directly. "compensated": the mass
+    of a hundred 1e-14 values that a plain float sum loses and Python's
+    sum() keeps decides where the 0.997 bound falls (a plain sum gives
+    (0, 0) and (101, 101)); ties for the maximum (the first wins), zero
+    sums, single and empty columns; infinities and NaN."""
+    col = [997.0] + [1e-14] * 100 + [3.0]
+    plain = 0.0
+    for v in col:
+        plain += v
+    assert sum(col) != plain
+    dist = {"compensated": [col, col[::-1], [0.0] * 5, col],
+            "ties_and_zeros": [[0.0] * 7, [2.0, 5.0, 5.0, 1.0], [3.0], [],
+                               [0.0, 1.0, 0.0, 1.0, 0.0], [1e-300] * 9],
+            "nonfinite": [[1.0, float("inf"), 2.0], [float("nan"), 1.0, 3.0],
+                          [1.0, float("nan"), 0.5, 4.0],
+                          [float("-inf"), 1.0], [2.0, 1.0, 1.0, 1.0]]}[kind]
+    pm, jm = pmodel.DepthModel(), jmodel.DepthModel()
+    pm.dist, jm.dist = [list(d) for d in dist], [list(d) for d in dist]
+    pm.process_high_low()
+    jm.process_high_low()
+    assert repr(vars(pm)) == repr(vars(jm))
+    if kind == "compensated":
+        assert pm.limits[:2] == [(0, 101), (0, 102)]
+
+
 # -- driver loaders -----------------------------------------------------------
 
 @pytest.mark.parametrize("layout", ["2col_tab", "2col_space", "4col_tab",
@@ -164,9 +298,9 @@ def test_load_hashlist_matches_jax(tmp_path, layout):
     tab = tmp_path / "tab"
     tab.write_text("".join(f"{s} {c}\n" for s, c in zip(kmers, counts))
                    + "short\n")
-    h2l = psamread.Context.__new__(psamread.Context).h2l
+    h2l = jsamread.Context.__new__(jsamread.Context).h2l
     got, want = {}, {}
-    pdriver._load_counts_file(str(tab), got, h2l)
+    pdriver._load_counts_file(str(tab), got)
     jdriver._load_counts_file(str(tab), want, h2l)
     assert list(got.items()) == list(want.items())
 
@@ -317,3 +451,70 @@ def test_shims_match_jax():
     for src in (fasta, [], fasta[:1]):
         assert list(pshims.multiline_fasta_to_singleline_fastq(src)) == \
             list(jshims.multiline_fasta_to_singleline_fastq(src))
+
+
+_PULL_LINES = {
+    "n_keys": ["ACGTNACGTACGTACGTACGTACGT 4", "acgtACGTnnACGT 7",
+               "AC-GT.AC?GT 2", "NNNNNNNNNNNNNNNNNNNNNNNNN 9", "ACéGTü 3",
+               "TTTTTTTTTTTTTTTTTTTTTTTTTTTTTTTT 1", " 5"],
+    "short_lines": ["ACGTACGT 3", "", "ACGTACGT", "TTTT\t5", "GGCC 8",
+                    "CCCA 1"],
+    "repeats": ["ACGT 3", "ACGT 5", "AACC 4", "GGTT 6", "ACGT 7", "A 1",
+                "T 2"],
+    "values": ["ACGA +5", "ACGC -7", "ACGG 1_000", "ACGT 007",
+               "AAAC 5 extra fields", "AAAG \t12\t", "AAAT 0",
+               "AACA 9223372036854775807", "AACC -9223372036854775808"],
+    "crlf": ["ACGTAC 3\r", "GGGA 4\r", "CCTA 5\r", "TTAG 6\r"],
+    "bad_count": ["ACGT 4", "ACGA 4x"],
+    "empty_count": ["ACGT 4", "ACGA  4"],
+}
+
+
+@pytest.mark.parametrize("kind", list(_PULL_LINES) + ["random"])
+def test_load_counts_file_matches_jax(tmp_path, kind):
+    """_load_counts_file on crafted pulls: keys with N, lowercase and other
+    characters (each takes a position and adds no bits), one-field and
+    empty lines, repeated keys and reverse-complement twins, count
+    spellings int() reads, CRLF line ends, a last line with no newline;
+    a bad count raises int()'s own error in both. The dicts are equal,
+    their order included."""
+    h2l = jsamread.Context.__new__(jsamread.Context).h2l
+    if kind == "random":
+        rng = np.random.default_rng(9)
+        kmers = ["".join(rng.choice(list("ACGTNacgt"), int(n)))
+                 for n in rng.integers(0, 32, 2000)]
+        lines = [f"{s} {int(c)}" for s, c in zip(
+            kmers, rng.integers(-50, 5000, len(kmers)))]
+    else:
+        lines = _PULL_LINES[kind]
+    path = tmp_path / "pull.tab"
+    with open(path, "w", newline="") as f:
+        f.write("\n".join(lines))
+    out = []
+    for load in (lambda d: pdriver._load_counts_file(str(path), d),
+                 lambda d: jdriver._load_counts_file(str(path), d, h2l)):
+        d = {"seed": 1}
+        try:
+            load(d)
+            out.append(list(d.items()))
+        except ValueError as e:
+            out.append(f"ValueError: {e}")
+    assert out[0] == out[1]
+    assert isinstance(out[0], str) == kind.startswith(("bad", "empty"))
+
+
+def test_load_counts_file_refuses_wide_keys(tmp_path):
+    """A k-mer whose packing needs more than 64 bits (a base other than A
+    past the 32nd, or other than T in the reverse complement) raises: the
+    port's keys are k-mers of k <= 31. At 32 bases both packings fit."""
+    path = tmp_path / "pull.tab"
+    path.write_text("T" * 32 + " 1\n" + "A" * 33 + "C 2\n")
+    with pytest.raises(ValueError, match="64 bits"):
+        pdriver._load_counts_file(str(path), {})
+    path.write_text("T" * 32 + " 1\nA" + "C" * 31 + " 2\n")
+    got, want = {}, {}
+    pdriver._load_counts_file(str(path), got)
+    jdriver._load_counts_file(str(path), want,
+                              jsamread.Context.__new__(jsamread.Context).h2l)
+    assert list(got.items()) == list(want.items())
+    assert max(got) == (1 << 64) - 1
